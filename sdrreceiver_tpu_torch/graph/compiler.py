@@ -1,0 +1,549 @@
+"""Plan -> CompiledReceiver: the whole receiver as one block step on tensors.
+
+Port of ``sdrreceiver_tpu.graph.compiler`` for the main path:
+
+    u8 (or f32) ingest + DC  ->  group fronts (mix + half-band cascade)
+        ->  per bucket: mix + cascade  ->  USB demod  ->  audio LPF
+        ->  int16 quantize
+
+``state', outputs = rx.step_u8(state, raw)``.  The DC pass runs in the fused
+ingest+DC kernel (``cuda/dckernel.py``) and every cascaded mix in the
+mix-cascade kernel (``cuda/frontend.py``): one merged kernel call for all
+group fronts when two or more groups cascade, then one per bucket.  The rest
+is torch ops.  On CPU tensors the kernel wrappers run their plain versions;
+``use_kernels=False`` calls the plain versions on any device (the reference
+the kernels are held to on the card).
+
+The mix-cascade kernel is stateless: each call is prefixed with the stream's
+past (the carried post-DC input tail ``xtail`` for group fronts, the
+previous block's group output re-derived from it for buckets) and the
+warm-up outputs dropped; the canonical per-stage cascade histories are then
+re-derived from the block's tail.  So the state stays in the JAX package's
+canonical layout, and :meth:`export_state` / :meth:`import_state` cross
+checkpoints both ways.
+
+Not in this slice (construction raises ``NotImplementedError``): late /5 /6
+decimation, audio filters of 128 taps or more (the JAX package's
+overlap-save FFT path), scope taps, IQ publishing groups.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..cuda.dckernel import DcIngest
+from ..cuda.frontend import MixCascade, phase_back, warmup_len
+from ..kernels import dc, design, fir, halfband, ingest, nco, usbdemod
+from .plan import ReceiverPlan
+
+__all__ = ["CompiledReceiver"]
+
+#: Audio filters at least this long run through the JAX package's
+#: overlap-save FFT engine, which is not ported yet.
+OSSFFT_MIN_TAPS = 128
+
+
+def _layout_warmup(stages: int, data_len: int, fs: int, base: int | None = None) -> int:
+    """The JAX package's ``pick_warmup`` (with its ``_tiling`` and
+    ``supported``): the warm-up padded by whole 256-sample rows until the
+    TPU kernel's tiling accepts ``data_len + warm``.  Shape-only; used to
+    size the carried ``xtail`` exactly as the JAX package does, so the two
+    packages' states have one layout.  The port's kernels need only
+    :func:`warmup_len`."""
+
+    def rows_per_tile(t: int) -> int | None:  # None: the TPU kernel refuses t
+        if stages > 7 or t % 256:
+            return None
+        total = t // 256
+        r = next(
+            (c for c in (512, 480, 448, 400, 384, 320, 256, 240, 192, 128,
+                         96, 64, 48, 32, 16, 8) if total % c == 0),
+            total,
+        )
+        if fs * max(r, 256) >= 2**31 or (total // r) * fs >= 2**31:
+            return None
+        return None if fs * 2048 >= 2**32 else r
+
+    if base is None:
+        base = warmup_len(stages)
+    fallback = None
+    for extra in range(65):
+        warm = base + extra * 256
+        t = data_len + warm
+        if t % 256:
+            break
+        r = rows_per_tile(t)
+        if r is None:
+            continue
+        if fallback is None:
+            fallback = warm
+        if r == t // 256 or r >= 32:
+            return warm
+    return base if fallback is None else fallback
+
+
+def _flatten(tree, prefix: str = ""):
+    """(path, tensor) leaves of a nested dict/list state, paths joined by
+    '/' (the JAX package's pytree key paths)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = f"{prefix}{k}"
+        if isinstance(v, (dict, list)):
+            yield from _flatten(v, key + "/")
+        else:
+            yield key, v
+
+
+def _is_planar_pair(key: str) -> bool:
+    """State paths held as planar ``[2, ...]`` f32 whose canonical
+    (checkpoint) form is complex64."""
+    leaf = key.rsplit("/", 1)[-1]
+    return key in ("dc", "xtail") or ("/cascade/" in key and leaf.isdigit())
+
+
+class CompiledReceiver:
+    """Executable form of a ReceiverPlan on one device.
+
+    Outputs of one step: ``pcm/g<i>/b<j>`` int16 ``[C*T_audio]``, one
+    bucket's audio, channel-major (the JAX package's layout);
+    :meth:`split_audio` gives the per-topic ``audio/<topic>`` views.  State
+    is a nested dict of tensors on ``device``.  ``device="cuda"`` without a
+    CUDA device raises."""
+
+    def __init__(
+        self,
+        plan: ReceiverPlan,
+        block_samples: int | None = None,
+        device: torch.device | str = "cpu",
+        use_kernels: bool = True,
+        emit_taps: tuple[str, ...] = (),
+    ):
+        self.plan = plan
+        self.block = int(block_samples or plan.block_samples)
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "CompiledReceiver: device 'cuda' requested but CUDA is not available"
+                )
+            if self.device.index is None:
+                self.device = torch.device("cuda", torch.cuda.current_device())
+        elif self.device.type != "cpu":
+            raise ValueError(f"CompiledReceiver: unsupported device {self.device}")
+        self.use_kernels = bool(use_kernels)
+        div = plan.block_divisor()
+        if self.block % div:
+            raise ValueError(
+                f"block of {self.block} samples not a multiple of chain divisor {div}"
+            )
+        self._refuse_unported(emit_taps)
+        self._build_consts()
+
+    # ------------------------------------------------------------ checks
+    def _refuse_unported(self, emit_taps) -> None:
+        if emit_taps:
+            raise NotImplementedError("scope taps (emit_taps) are not ported yet")
+        topics: set[str] = set()
+        cascades = False
+        for g in self.plan.groups:
+            if g.publishes_iq:
+                raise NotImplementedError(
+                    f"group {g.index} publishes IQ: compressed IQ topics are not ported yet"
+                )
+            cascades |= not g.direct and g.stages >= 1
+            for b in g.buckets:
+                cascades |= b.stages >= 1
+                if b.late_factor > 1:
+                    raise NotImplementedError(
+                        f"late /{b.late_factor} decimation is not ported yet"
+                    )
+                at = b.audio_taps()
+                if at is not None and at.shape[1] >= OSSFFT_MIN_TAPS:
+                    raise NotImplementedError(
+                        f"{at.shape[1]}-tap audio filters (overlap-save FFT path) "
+                        f"are not ported yet"
+                    )
+                for s in b.subs:
+                    if s.topic in topics:
+                        raise ValueError(f"duplicate sub-VFO topic {s.topic!r}")
+                    topics.add(s.topic)
+        if cascades and not self.xtail_len():
+            raise NotImplementedError(
+                f"block of {self.block} samples is shorter than the warm-up the "
+                f"stateless cascade kernels need"
+            )
+
+    def _check_input(self, raw: torch.Tensor, dtype: torch.dtype, n: int) -> None:
+        if raw.device != self.device or raw.dtype != dtype or raw.shape != (n,):
+            raise ValueError(
+                f"expected {dtype} [{n}] on {self.device}, got {raw.dtype} "
+                f"{tuple(raw.shape)} on {raw.device}"
+            )
+
+    # ------------------------------------------------------------ consts
+    def _build_consts(self) -> None:
+        dev = self.device
+        plan = self.plan
+        self.dc_ingest = DcIngest()
+        hb = design.half_band(11)
+        hilb = design.hilbert()
+        self._hb1 = fir.prepare_taps(hb, 1, dev)
+        self._c: dict[str, torch.Tensor] = {}
+        cands = [g for g in plan.groups if not g.direct and g.stages >= 1]
+        # one kernel call for every group front when two or more cascade:
+        # they all mix the SAME full-rate stream, read once per tile
+        self._merged = None
+        self._group_mc: dict[int, MixCascade] = {}
+        if len(cands) >= 2:
+            self._merged = (
+                MixCascade(
+                    [g.stages for g in cands], plan.fs,
+                    [g.mixer_freq for g in cands], dev,
+                ),
+                max(warmup_len(g.stages) for g in cands),
+                [g.index for g in cands],
+            )
+        else:
+            for g in cands:
+                self._group_mc[g.index] = MixCascade(
+                    [g.stages], plan.fs, [g.mixer_freq], dev
+                )
+        self._bucket_mc: dict[str, MixCascade] = {}
+        for g in plan.groups:
+            for bi, b in enumerate(g.buckets):
+                bk = f"g{g.index}/b{bi}"
+                c = b.channels
+                if b.stages >= 1:
+                    self._bucket_mc[bk] = MixCascade(
+                        [b.stages] * c, b.mix_fs(g.out_rate), b.mixer_freqs(), dev
+                    )
+                self._c[f"{bk}/hb"] = fir.prepare_taps(hb, c, dev)
+                self._c[f"{bk}/hilbert"] = fir.prepare_taps(hilb, c, dev)
+                self._c[f"{bk}/gains"] = torch.tensor(b.gains(), device=dev)
+                at = b.audio_taps()
+                if at is not None:
+                    self._c[f"{bk}/audio"] = fir.prepare_taps(at, None, dev)
+
+    def mix_cascades(self) -> dict[str, tuple[MixCascade, int]]:
+        """Every mix-cascade kernel wrapper this receiver launches, by site
+        ("front", "g<i>" or "g<i>/b<j>"), with the input length each call
+        gets (block plus warm-up)."""
+        sites = {}
+        if self._merged is not None:
+            sites["front"] = (self._merged[0], self.block + self._merged[1])
+        for gi, mc in self._group_mc.items():
+            sites[f"g{gi}"] = (mc, self.block + warmup_len(mc.dmax))
+        for g in self.plan.groups:
+            for bi, b in enumerate(g.buckets):
+                mc = self._bucket_mc.get(f"g{g.index}/b{bi}")
+                if mc is not None:
+                    sites[f"g{g.index}/b{bi}"] = (
+                        mc, (self.block >> g.stages) + warmup_len(b.stages)
+                    )
+        return sites
+
+    def _run(self, kern, *args):
+        return kern(*args) if self.use_kernels else kern.plain(*args)
+
+    # ------------------------------------------------------------- state
+    def xtail_len(self) -> int:
+        """Length of the carried post-DC input tail ``state["xtail"]``: the
+        JAX package's value for the same plan and block (its TPU-tiled
+        warm-ups), so checkpoints cross unchanged.  It covers every
+        warm-up this port prepends.  0 = no tail."""
+        ps = []
+        cands = [g for g in self.plan.groups if not g.direct and g.stages >= 1]
+        if len(cands) >= 2:
+            ps.append(_layout_warmup(
+                max(g.stages for g in cands), self.block, self.plan.fs,
+                base=max(warmup_len(g.stages) for g in cands),
+            ))
+        for g in cands:
+            ps.append(_layout_warmup(g.stages, self.block, self.plan.fs))
+        for g in self.plan.groups:
+            wg_washout = warmup_len(g.stages) if g.stages >= 1 else 0
+            tg = self.block >> g.stages
+            for b in g.buckets:
+                if b.stages >= 1:
+                    wb = _layout_warmup(b.stages, tg, b.mix_fs(g.out_rate))
+                    ps.append((1 << g.stages) * wb + wg_washout)
+        p = max(ps, default=0)
+        return p if 0 < p <= self.block else 0
+
+    def init_state(self) -> dict:
+        """Fresh streaming state (nested dict of tensors on the device)."""
+        dev = self.device
+        plan = self.plan
+        state: dict[str, Any] = {"dc": dc.dc_init_planar(dev)}
+        if self.xtail_len():
+            state["xtail"] = torch.zeros(2, self.xtail_len(), device=dev)
+        for g in plan.groups:
+            gs: dict[str, Any] = {}
+            if not g.direct:
+                gs["nco"] = nco.nco_init([g.mixer_freq], plan.fs, dev)
+                gs["cascade"] = halfband.cascade_init_planar(1, g.stages, dev)
+            for bi, b in enumerate(g.buckets):
+                c = b.channels
+                bs: dict[str, Any] = {
+                    "nco": nco.nco_init(b.mixer_freqs(), b.mix_fs(g.out_rate), dev),
+                    "usb": usbdemod.usb_init(c, dev),
+                    "cascade": halfband.cascade_init_planar(c, b.stages, dev),
+                }
+                audio = self._c.get(f"g{g.index}/b{bi}/audio")
+                if audio is not None:
+                    bs["audio"] = torch.zeros(c, audio.shape[1] - 1, device=dev)
+                gs[f"b{bi}"] = bs
+            state[f"g{g.index}"] = gs
+        return state
+
+    def export_state(self, state: dict) -> dict[str, np.ndarray]:
+        """State -> named host leaves in the canonical layout of the JAX
+        package's ``CompiledReceiver.export_state``: complex64 for the DC
+        mean, the tail and the cascade histories, uint32 for NCO integers,
+        float32 otherwise."""
+        out: dict[str, np.ndarray] = {}
+        for key, v in _flatten(state):
+            a = v.detach().cpu().numpy()
+            if _is_planar_pair(key):
+                out[key] = np.asarray(a[0] + 1j * a[1]).astype(np.complex64)
+            elif a.dtype == np.int64:
+                out[key] = a.astype(np.uint32)
+            else:
+                out[key] = a
+        return out
+
+    def import_state(self, named: dict) -> dict:
+        """Named canonical leaves (from either package's ``export_state``)
+        -> state on the device.  A tail of another length is left-padded
+        with zeros or trimmed (a bounded warm-up transient, as in the JAX
+        package); any other mismatch raises with the offending path."""
+        conv = dict(named)
+        want = self.xtail_len()
+        if want and "xtail" not in conv:
+            conv["xtail"] = np.zeros(want, np.complex64)
+        elif want:
+            h = np.asarray(conv["xtail"])
+            if h.shape[-1] > want:
+                conv["xtail"] = h[..., -want:]
+            elif h.shape[-1] < want:
+                conv["xtail"] = np.concatenate([np.zeros(want - h.shape[-1], h.dtype), h])
+
+        def load(key: str, tmpl: torch.Tensor) -> torch.Tensor:
+            if key not in conv:
+                raise KeyError(f"checkpoint missing state entry {key!r}")
+            h = np.asarray(conv[key])
+            shape = tuple(tmpl.shape[1:] if _is_planar_pair(key) else tmpl.shape)
+            if h.shape != shape:
+                raise ValueError(
+                    f"checkpoint entry {key!r} has shape {h.shape}, expected {shape}"
+                )
+            if _is_planar_pair(key):
+                h = np.stack([h.real, h.imag]).astype(np.float32)
+            else:
+                h = h.astype(np.int64 if tmpl.dtype == torch.int64 else np.float32)
+            return torch.tensor(h, device=self.device)
+
+        def rebuild(tree, prefix: str = ""):
+            if isinstance(tree, dict):
+                return {k: rebuild(v, f"{prefix}{k}/") for k, v in tree.items()}
+            if isinstance(tree, list):
+                return [rebuild(v, f"{prefix}{i}/") for i, v in enumerate(tree)]
+            return load(prefix[:-1], tree)
+
+        return rebuild(self.init_state())
+
+    # -------------------------------------------------------------- step
+    def step_u8(self, state: dict, raw: torch.Tensor):
+        """One block of interleaved u8 IQ ``[2T]`` (the dongle format)."""
+        self._check_input(raw, torch.uint8, 2 * self.block)
+        return self._step_raw(state, raw)
+
+    def step_f32(self, state: dict, raw: torch.Tensor):
+        """One block of interleaved float32 IQ ``[2T]``."""
+        self._check_input(raw, torch.float32, 2 * self.block)
+        return self._step_raw(state, raw)
+
+    def step_iq(self, state: dict, iq: torch.Tensor):
+        """One block of complex64 IQ ``[T]`` (its memory is the interleaved
+        f32 layout, so it takes the f32 entry)."""
+        self._check_input(iq, torch.complex64, self.block)
+        return self._step_raw(state, torch.view_as_real(iq.contiguous()).reshape(-1))
+
+    def _step_raw(self, state: dict, raw: torch.Tensor):
+        if self.plan.dc_correct:
+            mean, x = self._run(self.dc_ingest, state["dc"], raw)
+        elif raw.dtype == torch.uint8:
+            mean, x = state["dc"], ingest.u8_iq_to_planar(raw)
+        else:
+            mean, x = state["dc"], ingest.f32_pairs_to_planar(raw)
+        new_state, zs = self._front(state, x)
+        new_state["dc"] = mean
+        p = self.xtail_len()
+        if p:
+            new_state["xtail"] = torch.stack([x[0][-p:], x[1][-p:]])
+        outputs: dict[str, torch.Tensor] = {}
+        for g in self.plan.groups:
+            gk = f"g{g.index}"
+            for bi in range(len(g.buckets)):
+                new_state[gk][f"b{bi}"] = self._bucket_step(
+                    g, bi, state[gk][f"b{bi}"], zs[gk], outputs, state
+                )
+        return new_state, outputs
+
+    def _front(self, state: dict, x):
+        """Every group's full-rate mix + half-band cascade on the post-DC
+        planar input ``x``.  Returns ``(partial new state, {g<i>: (zr, zi)
+        [1, Tg]})``."""
+        plan = self.plan
+        fs = plan.fs
+        xr, xi = x
+        new_state: dict[str, Any] = {}
+        zs: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
+        merged: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
+        if self._merged is not None:
+            mc, warm, gidxs = self._merged
+            xt = state["xtail"]
+            phases = torch.cat([state[f"g{i}"]["nco"]["phase"] for i in gidxs])
+            ext_r = torch.cat([xt[0, -warm:], xr])[None]
+            ext_i = torch.cat([xt[1, -warm:], xi])[None]
+            yr, yi = self._run(mc, phase_back(phases, mc.f_mod, fs, warm), ext_r, ext_i)
+            t_ext = ext_r.shape[1]
+            for gi, d, zr, zi in zip(
+                gidxs, mc.depths, mc.split(yr, t_ext), mc.split(yi, t_ext)
+            ):
+                merged[gi] = (zr[warm >> d:][None], zi[warm >> d:][None])
+        for g in plan.groups:
+            gk = f"g{g.index}"
+            gs = state.get(gk, {})
+            ngs: dict[str, Any] = {}
+            if g.direct:
+                zs[gk] = (xr[None], xi[None])
+            elif g.stages == 0:
+                ngs["nco"], zs[gk] = nco.mix_block_planar(gs["nco"], x, fs)
+                ngs["cascade"] = []
+            else:
+                if g.index in merged:
+                    zs[gk] = merged[g.index]
+                else:
+                    warm = warmup_len(g.stages)
+                    xt = state["xtail"]
+                    yr, yi = self._run(
+                        self._group_mc[g.index],
+                        nco.phase_minus(gs["nco"], fs, warm),
+                        torch.cat([xt[0, -warm:], xr])[None],
+                        torch.cat([xt[1, -warm:], xi])[None],
+                    )
+                    drop = warm >> g.stages
+                    zs[gk] = (yr[drop:][None], yi[drop:][None])
+                ngs["nco"] = dict(gs["nco"])
+                ngs["nco"]["phase"] = nco.advance_per_block(gs["nco"], fs, self.block)
+                # canonical cascade histories re-derived from the block's
+                # mixed tail (exact by washout)
+                w = warmup_len(g.stages)
+                tst = dict(gs["nco"])
+                tst["phase"] = nco.phase_minus(ngs["nco"], fs, w)
+                _, ztail = nco.mix_block_planar(tst, (xr[-w:], xi[-w:]), fs)
+                ngs["cascade"] = halfband.cascade_tails_from_tail(ztail, self._hb1, g.stages)
+            new_state[gk] = ngs
+        return new_state, zs
+
+    def _prev_group_tail(self, state: dict, g, n_out: int):
+        """Last ``n_out`` group-rate samples of the PREVIOUS block's group
+        output, re-derived from the carried xtail: the warm-up prefix of
+        this block's bucket kernels.  Direct groups: the raw tail.  Mix-only
+        groups: the tail mixed at the rewound phase.  Cascaded groups: the
+        last ``n_out * 2^stages + warmup`` inputs mixed at the rewound phase
+        through a ZERO-state cascade, whose start washes out."""
+        xt = state["xtail"]
+        if g.direct:
+            return xt[0, -n_out:][None], xt[1, -n_out:][None]
+        fs = self.plan.fs
+        gs = state[f"g{g.index}"]
+        need = n_out if g.stages == 0 else n_out * (1 << g.stages) + warmup_len(g.stages)
+        tst = dict(gs["nco"])
+        tst["phase"] = nco.phase_minus(gs["nco"], fs, need)
+        _, z = nco.mix_block_planar(tst, (xt[0, -need:], xt[1, -need:]), fs)
+        if g.stages == 0:
+            return z
+        _, z = halfband.cascade_apply_planar(
+            halfband.cascade_init_planar(1, g.stages, self.device), z, self._hb1
+        )
+        return z[0][:, -n_out:], z[1][:, -n_out:]
+
+    def _bucket_step(self, g, bi: int, bs: dict, z, outputs: dict, state: dict) -> dict:
+        """One sub-VFO bucket on the planar group baseband ``z`` ``[1, Tg]``:
+        mix + cascade, USB demod, audio low-pass, int16 quantize."""
+        b = g.buckets[bi]
+        bk = f"g{g.index}/b{bi}"
+        fs_b = b.mix_fs(g.out_rate)
+        zr, zi = z
+        nbs: dict[str, Any] = {}
+        if b.stages >= 1:
+            w = warmup_len(b.stages)
+            ptr, pti = self._prev_group_tail(state, g, w)
+            yr, yi = self._run(
+                self._bucket_mc[bk],
+                nco.phase_minus(bs["nco"], fs_b, w),
+                torch.cat([ptr, zr], dim=-1),
+                torch.cat([pti, zi], dim=-1),
+            )
+            drop = w >> b.stages
+            y = (
+                yr.view(b.channels, -1)[:, drop:],
+                yi.view(b.channels, -1)[:, drop:],
+            )
+            nbs["nco"] = dict(bs["nco"])
+            nbs["nco"]["phase"] = nco.advance_per_block(bs["nco"], fs_b, zr.shape[-1])
+            tst = dict(bs["nco"])
+            tst["phase"] = nco.phase_minus(nbs["nco"], fs_b, w)
+            _, ztail = nco.mix_block_planar(tst, (zr[0, -w:], zi[0, -w:]), fs_b)
+            nbs["cascade"] = halfband.cascade_tails_from_tail(
+                ztail, self._c[f"{bk}/hb"], b.stages
+            )
+        else:
+            nbs["nco"], y = nco.mix_block_planar(bs["nco"], (zr[0], zi[0]), fs_b)
+            nbs["cascade"] = []
+        nbs["usb"], audio = usbdemod.usb_block_planar(bs["usb"], y, self._c[f"{bk}/hilbert"])
+        if f"{bk}/audio" in self._c:
+            nbs["audio"], audio = fir.conv_block(bs["audio"], audio, self._c[f"{bk}/audio"])
+        outputs[f"pcm/{bk}"] = usbdemod.quantize_i16(audio, self._c[f"{bk}/gains"]).reshape(-1)
+        return nbs
+
+    # ----------------------------------------------------------- outputs
+    def split_audio(self, outputs: dict) -> dict:
+        """Packed ``pcm/g<i>/b<j>`` buffers -> per-channel ``audio/<topic>``
+        views (tensors or host arrays alike)."""
+        out = {k: v for k, v in outputs.items() if not k.startswith("pcm/")}
+        for g in self.plan.groups:
+            tg = self.block >> g.stages
+            for bi, b in enumerate(g.buckets):
+                flat = outputs.get(f"pcm/g{g.index}/b{bi}")
+                if flat is None:
+                    continue
+                ta = (tg >> b.stages) // b.late_factor
+                for ci, s in enumerate(b.subs):
+                    out[f"audio/{s.topic}"] = flat[ci * ta : (ci + 1) * ta]
+        return out
+
+    def rates(self) -> dict[str, int]:
+        """Output key -> sample rate (the ZMQ wire rate field)."""
+        return {
+            f"audio/{s.topic}": b.out_rate
+            for g in self.plan.groups
+            for b in g.buckets
+            for s in b.subs
+        }
+
+    def output_shapes(self) -> dict[str, tuple[int, ...]]:
+        """Public (post-:meth:`split_audio`) output key -> shape."""
+        shapes: dict[str, tuple[int, ...]] = {}
+        for g in self.plan.groups:
+            tg = self.block >> g.stages
+            for b in g.buckets:
+                ta = (tg >> b.stages) // b.late_factor
+                for s in b.subs:
+                    shapes[f"audio/{s.topic}"] = (ta,)
+        return shapes
