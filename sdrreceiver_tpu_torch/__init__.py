@@ -6,14 +6,18 @@ that package's module names so each counterpart is easy to find, imports
 JAX installed.
 
 Subpackages:
-  kernels  DSP functions on tensors (ingest, DC, NCO, FIR, half-band, USB)
-           plus the host-side filter design
+  kernels  DSP functions on tensors (ingest, DC, NCO, FIR, half-band, late
+           /5 /6, overlap-save FFT, USB, IQ compression) plus the host-side
+           filter design
   cuda     wrappers around the hand-written CUDA kernels (``csrc/``), each
            with its plain PyTorch version, and the nvcc build
   graph    ini config -> ReceiverPlan -> CompiledReceiver (one step per
            ingest block)
-  io       test-signal synthesis
-  flagship the 27-channel benchmark configuration
+  core     streaming helpers, checkpoints, the host pipeline runner
+  obs      pipeline metrics, the plan cost model, the spectrum scope
+  io       IQ files, test-signal synthesis, WAV output, ZMQ egress
+  cli      ``python -m sdrreceiver_tpu_torch`` (plan, synth, process-file)
+  flagship the configurations the port is driven and measured with
 """
 
-__version__ = "0.1.0"
+__version__ = "0.2.0"

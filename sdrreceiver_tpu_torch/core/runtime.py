@@ -1,0 +1,178 @@
+"""Host pipeline runner: ingest -> device step -> egress, one block in flight.
+
+Port of ``sdrreceiver_tpu.core.runtime.run_pipeline``.  PyTorch enqueues
+CUDA work asynchronously, so the overlap is a two-deep software pipeline:
+upload block N and enqueue its step, then wait for block N-1's outputs
+(already queued for copy to pinned host memory behind a CUDA event) and
+publish them while the device computes block N.  Nothing calls
+``torch.cuda.synchronize()`` per block.  On the CPU the same code runs
+synchronously and the outputs are the step's own tensors.
+"""
+
+from __future__ import annotations
+
+import itertools
+import time
+from typing import Callable, Iterable
+
+import numpy as np
+import torch
+
+from ..obs.metrics import PipelineMetrics
+
+__all__ = ["run_pipeline"]
+
+
+class _Fetched:
+    """One step's outputs on their way to the host.  On CUDA each kept key
+    is copied into a fresh pinned buffer (``non_blocking``) and an event
+    marks the copies' end; the caching host allocator keeps a buffer out of
+    reuse while a callback still holds a view of it, so nothing is
+    rewritten before it is consumed."""
+
+    def __init__(self, outputs: dict, keep: Callable[[str], bool], device: torch.device):
+        outputs = {k: v for k, v in outputs.items() if keep(k)}
+        self.event = None
+        if device.type == "cuda":
+            host = {}
+            for k, v in outputs.items():
+                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                h.copy_(v, non_blocking=True)
+                host[k] = h
+            self.event = torch.cuda.Event()
+            self.event.record()
+            outputs = host
+        self.outputs = outputs
+
+    def numpy(self) -> dict[str, np.ndarray]:
+        if self.event is not None:
+            self.event.synchronize()
+        return {k: v.numpy() for k, v in self.outputs.items()}
+
+
+def _upload(rx, block) -> torch.Tensor:
+    """A host block (numpy or tensor) -> a tensor on the receiver's device;
+    a CUDA upload goes through pinned memory without blocking the host."""
+    t = torch.as_tensor(block)
+    if t.device == rx.device:
+        return t
+    if rx.device.type == "cuda" and t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(rx.device, non_blocking=True)
+
+
+def _step(rx, state, block: torch.Tensor, raw_u8: bool, many: bool):
+    """Dispatch on the block's dtype: u8 = raw dongle bytes, f32 =
+    interleaved pairs, complex = IQ."""
+    if raw_u8 or block.dtype == torch.uint8:
+        fn = rx.step_many_u8 if many else rx.step_u8
+    elif block.dtype == torch.float32:
+        fn = rx.step_many_f32 if many else rx.step_f32
+    else:
+        fn = rx.step_many_iq if many else rx.step_iq
+    return fn(state, block)
+
+
+def run_pipeline(
+    rx,
+    blocks: Iterable,
+    on_outputs: Callable[[dict[str, np.ndarray]], int] | None = None,
+    raw_u8: bool = False,
+    max_blocks: int | None = None,
+    realtime_fs: int | None = None,
+    state=None,
+    return_state: bool = False,
+    fetch_filter: Callable[[str], bool] | None = None,
+    burst: int = 1,
+):
+    """Drive a CompiledReceiver over a block source.
+
+    Args:
+      rx: CompiledReceiver.
+      blocks: iterable of host (numpy) or device blocks: ``[2T]`` uint8 or
+        float32 pairs, or ``[T]`` complex64.
+      on_outputs: callback receiving each block's host outputs (numpy,
+        after ``split_audio``), in block order; returns messages sent.
+      raw_u8: feed every block to the u8 entry.
+      max_blocks: stop after N blocks.
+      realtime_fs: pace ingestion to this many samples per second.
+      state: resume from this state (default: ``rx.init_state()``).
+      return_state: also return the final state.
+      fetch_filter: per-key predicate; outputs failing it are never copied
+        to the host.
+      burst: blocks per ``step_many_*`` call (offline throughput; callbacks
+        still fire once per block, in order).  Incompatible with
+        ``realtime_fs``; a tail shorter than ``burst`` runs as single steps.
+
+    Returns PipelineMetrics, or ``(metrics, final_state)`` with return_state.
+    """
+    burst = max(1, int(burst))
+    if burst > 1 and realtime_fs:
+        raise ValueError(
+            "burst > 1 is an offline-throughput mode; realtime pacing "
+            "requires per-block dispatch (burst=1)"
+        )
+    metrics = PipelineMetrics()
+    metrics.start()
+    if state is None:
+        state = rx.init_state()
+    t_block = rx.block
+    it = iter(blocks)
+    if max_blocks is not None:
+        it = itertools.islice(it, max_blocks)
+
+    def keep(key: str) -> bool:
+        # nothing is copied to the host when no callback reads it
+        return on_outputs is not None and (fetch_filter is None or fetch_filter(key))
+
+    def publish(unit: tuple[_Fetched, int | None] | None) -> int:
+        """Wait for one unit's copies and fire the per-block callbacks."""
+        if unit is None:
+            return 0
+        fetched, k = unit
+        host = fetched.numpy()
+        if on_outputs is None:
+            return 0
+        frames = [host] if k is None else rx.unstack_outputs(host, k)
+        return sum(on_outputs(rx.split_audio(f)) for f in frames)
+
+    pending = None
+    next_deadline = time.perf_counter()
+    while True:
+        stack = list(itertools.islice(it, burst))
+        if not stack:
+            break
+        if len(stack) == burst and burst > 1:
+            units = [(torch.stack([torch.as_tensor(b) for b in stack]), burst)]
+        else:
+            units = [(b, None) for b in stack]
+        for blk, k in units:
+            t0 = time.perf_counter()
+            state, outs = _step(rx, state, _upload(rx, blk), raw_u8, k is not None)
+            fetched = _Fetched(outs, keep, rx.device)
+            # publish the previous unit while this one computes
+            sent = publish(pending)
+            pending = (fetched, k)
+            t_compute = time.perf_counter() - t0
+            slack = 0.0
+            if realtime_fs:
+                next_deadline += t_block / realtime_fs
+                slack = next_deadline - time.perf_counter()
+                if slack > 0:
+                    time.sleep(slack)
+                else:
+                    # behind realtime: resync (a dongle's lost time is lost)
+                    next_deadline = time.perf_counter()
+            # under burst the unit's time is split evenly over its blocks
+            # and the previous unit's messages go to its first block
+            n = k or 1
+            for j in range(n):
+                metrics.record_block(
+                    t_block, t_compute / n, sent if j == 0 else 0,
+                    pacing_slack=slack if realtime_fs else None,
+                )
+    metrics.messages_sent += publish(pending)
+    metrics.finish()
+    if return_state:
+        return metrics, state
+    return metrics

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-nvcc compiles every source into one shared library with a plain C interface
-for ``sm_90a``, loaded with ``ctypes``.  The build happens at first use, from
+nvcc compiles every source (one nvcc per source, all started together) and
+links the objects into one shared library with a plain C interface for
+``sm_90a``, loaded with ``ctypes``.  The build happens at first use, from
 the repository's sources only, into ``build/`` at the repository root, under
 a name made from a hash of the sources and flags, so a changed source builds
 anew and an unchanged one loads the library already there.  No fast-math:
@@ -25,7 +26,7 @@ _BUILD = _PKG.parent / "build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _LL, _D, _F = (
@@ -70,15 +71,29 @@ def library() -> ctypes.CDLL:
     out = _lib_path()
     if not out.exists():
         _BUILD.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-        cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = _BUILD / f"{tag}.{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            jobs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        report = [proc.communicate()[0] for _, proc in jobs]  # wait for all
+        for (obj, proc), text in zip(jobs, report):
+            if proc.returncode:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}) on {obj.name}:\n{text}")
+        tmp = _BUILD / f"{tag}.tmp.so"
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *(str(o) for o, _ in jobs)],
             capture_output=True, text=True, check=False,
         )
-        if proc.returncode:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".ptxas.txt").write_text(proc.stdout + proc.stderr)
+        for obj, _ in jobs:
+            obj.unlink()
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+        out.with_suffix(".ptxas.txt").write_text("".join(report))
         os.replace(tmp, out)
     lib = ctypes.CDLL(str(out))
     for name, args in _SIGNATURES.items():

@@ -1,9 +1,11 @@
 """Plan -> CompiledReceiver: the whole receiver as one block step on tensors.
 
-Port of ``sdrreceiver_tpu.graph.compiler`` for the main path:
+Port of ``sdrreceiver_tpu.graph.compiler`` for one device:
 
     u8 (or f32) ingest + DC  ->  group fronts (mix + half-band cascade)
-        ->  per bucket: mix + cascade  ->  USB demod  ->  audio LPF
+        ->  [compressed group IQ]
+        ->  per bucket: mix + cascade  ->  late /5 /6  ->  USB demod
+        ->  audio LPF (direct, or overlap-save FFT for long filters)
         ->  int16 quantize
 
 ``state', outputs = rx.step_u8(state, raw)``.  The DC pass runs in the fused
@@ -22,9 +24,11 @@ re-derived from the block's tail.  So the state stays in the JAX package's
 canonical layout, and :meth:`export_state` / :meth:`import_state` cross
 checkpoints both ways.
 
-Not in this slice (construction raises ``NotImplementedError``): late /5 /6
-decimation, audio filters of 128 taps or more (the JAX package's
-overlap-save FFT path), scope taps, IQ publishing groups.
+Scope taps (``emit_taps``) add ``tap/<name>`` outputs: the post-DC input
+("main"), a group's output ("g<i>") or a sub-VFO's decimated pre-late
+baseband (its topic).  One refusal remains: a block shorter than the
+stateless kernels' warm-up raises ``NotImplementedError`` (the JAX package
+runs its jnp cascade there).
 """
 
 from __future__ import annotations
@@ -34,16 +38,24 @@ from typing import Any
 import numpy as np
 import torch
 
+from ..core import stream
 from ..cuda.dckernel import DcIngest
 from ..cuda.frontend import MixCascade, phase_back, warmup_len
-from ..kernels import dc, design, fir, halfband, ingest, nco, usbdemod
+from ..kernels import (
+    compress,
+    dc,
+    design,
+    fir,
+    halfband,
+    ingest,
+    nco,
+    ossfft,
+    polyphase,
+    usbdemod,
+)
 from .plan import ReceiverPlan
 
 __all__ = ["CompiledReceiver"]
-
-#: Audio filters at least this long run through the JAX package's
-#: overlap-save FFT engine, which is not ported yet.
-OSSFFT_MIN_TAPS = 128
 
 
 def _layout_warmup(stages: int, data_len: int, fs: int, base: int | None = None) -> int:
@@ -99,30 +111,47 @@ def _flatten(tree, prefix: str = ""):
 
 def _is_planar_pair(key: str) -> bool:
     """State paths held as planar ``[2, ...]`` f32 whose canonical
-    (checkpoint) form is complex64."""
+    (checkpoint) form is complex64: the DC mean, the input tail, cascade
+    stage histories and late-decimator histories."""
     leaf = key.rsplit("/", 1)[-1]
-    return key in ("dc", "xtail") or ("/cascade/" in key and leaf.isdigit())
+    return key in ("dc", "xtail") or leaf == "late" or (
+        "/cascade/" in key and leaf.isdigit()
+    )
 
 
 class CompiledReceiver:
     """Executable form of a ReceiverPlan on one device.
 
-    Outputs of one step: ``pcm/g<i>/b<j>`` int16 ``[C*T_audio]``, one
-    bucket's audio, channel-major (the JAX package's layout);
-    :meth:`split_audio` gives the per-topic ``audio/<topic>`` views.  State
-    is a nested dict of tensors on ``device``.  ``device="cuda"`` without a
-    CUDA device raises."""
+    Outputs of one step (the JAX package's keys and layouts):
+      ``pcm/g<i>/b<j>``  int16 ``[C*T_audio]``, one bucket's audio,
+                         channel-major; :meth:`split_audio` gives the
+                         per-topic ``audio/<topic>`` views
+      ``iq/<topic>``     uint8 ``[T_group]`` compressed group IQ, for main
+                         VFOs that publish it (mainwindow.cpp:109-126)
+      ``tap/<name>``     f32 ``[2, T']`` planar scope tap, the last
+                         ``tap_samples`` samples (for each ``emit_taps``)
+
+    State is a nested dict of tensors on ``device``.  ``device="cuda"``
+    without a CUDA device raises.  ``use_kernels=False`` runs the kernels'
+    plain versions on any device.  Audio filters of at least
+    ``ossfft_min_taps`` taps run through the overlap-save FFT engine
+    (``kernels/ossfft``; None disables it)."""
 
     def __init__(
         self,
         plan: ReceiverPlan,
         block_samples: int | None = None,
+        emit_taps: tuple[str, ...] = (),
         device: torch.device | str = "cpu",
         use_kernels: bool = True,
-        emit_taps: tuple[str, ...] = (),
+        ossfft_min_taps: int | None = 128,
+        tap_samples: int | None = 8192,
     ):
         self.plan = plan
         self.block = int(block_samples or plan.block_samples)
+        self.emit_taps = tuple(emit_taps)
+        self.ossfft_min_taps = ossfft_min_taps
+        self.tap_samples = tap_samples
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -134,42 +163,23 @@ class CompiledReceiver:
         elif self.device.type != "cpu":
             raise ValueError(f"CompiledReceiver: unsupported device {self.device}")
         self.use_kernels = bool(use_kernels)
+        bad = set(self.emit_taps) - set(self.tap_rates())
+        if bad:
+            raise ValueError(f"unknown taps {sorted(bad)}; valid: {sorted(self.tap_rates())}")
         div = plan.block_divisor()
         if self.block % div:
             raise ValueError(
                 f"block of {self.block} samples not a multiple of chain divisor {div}"
             )
-        self._refuse_unported(emit_taps)
+        self._refuse_short_block()
         self._build_consts()
 
     # ------------------------------------------------------------ checks
-    def _refuse_unported(self, emit_taps) -> None:
-        if emit_taps:
-            raise NotImplementedError("scope taps (emit_taps) are not ported yet")
-        topics: set[str] = set()
-        cascades = False
-        for g in self.plan.groups:
-            if g.publishes_iq:
-                raise NotImplementedError(
-                    f"group {g.index} publishes IQ: compressed IQ topics are not ported yet"
-                )
-            cascades |= not g.direct and g.stages >= 1
-            for b in g.buckets:
-                cascades |= b.stages >= 1
-                if b.late_factor > 1:
-                    raise NotImplementedError(
-                        f"late /{b.late_factor} decimation is not ported yet"
-                    )
-                at = b.audio_taps()
-                if at is not None and at.shape[1] >= OSSFFT_MIN_TAPS:
-                    raise NotImplementedError(
-                        f"{at.shape[1]}-tap audio filters (overlap-save FFT path) "
-                        f"are not ported yet"
-                    )
-                for s in b.subs:
-                    if s.topic in topics:
-                        raise ValueError(f"duplicate sub-VFO topic {s.topic!r}")
-                    topics.add(s.topic)
+    def _refuse_short_block(self) -> None:
+        cascades = any(
+            (not g.direct and g.stages >= 1) or any(b.stages >= 1 for b in g.buckets)
+            for g in self.plan.groups
+        )
         if cascades and not self.xtail_len():
             raise NotImplementedError(
                 f"block of {self.block} samples is shorter than the warm-up the "
@@ -192,6 +202,7 @@ class CompiledReceiver:
         hilb = design.hilbert()
         self._hb1 = fir.prepare_taps(hb, 1, dev)
         self._c: dict[str, torch.Tensor] = {}
+        self._oss: dict[str, dict] = {}
         cands = [g for g in plan.groups if not g.direct and g.stages >= 1]
         # one kernel call for every group front when two or more cascade:
         # they all mix the SAME full-rate stream, read once per tile
@@ -223,8 +234,15 @@ class CompiledReceiver:
                 self._c[f"{bk}/hb"] = fir.prepare_taps(hb, c, dev)
                 self._c[f"{bk}/hilbert"] = fir.prepare_taps(hilb, c, dev)
                 self._c[f"{bk}/gains"] = torch.tensor(b.gains(), device=dev)
+                lt = b.late_taps()
+                if lt is not None:
+                    self._c[f"{bk}/late"] = fir.prepare_taps(lt, c, dev)
                 at = b.audio_taps()
-                if at is not None:
+                if at is None:
+                    continue
+                if self.ossfft_min_taps is not None and at.shape[1] >= self.ossfft_min_taps:
+                    self._oss[bk] = ossfft.oss_prepare(at, device=dev)
+                else:
                     self._c[f"{bk}/audio"] = fir.prepare_taps(at, None, dev)
 
     def mix_cascades(self) -> dict[str, tuple[MixCascade, int]]:
@@ -292,9 +310,14 @@ class CompiledReceiver:
                     "usb": usbdemod.usb_init(c, dev),
                     "cascade": halfband.cascade_init_planar(c, b.stages, dev),
                 }
-                audio = self._c.get(f"g{g.index}/b{bi}/audio")
-                if audio is not None:
-                    bs["audio"] = torch.zeros(c, audio.shape[1] - 1, device=dev)
+                bk = f"g{g.index}/b{bi}"
+                if f"{bk}/late" in self._c:
+                    bs["late"] = fir.fir_history_init_planar(
+                        c, self._c[f"{bk}/late"].shape[1], dev
+                    )
+                at = b.audio_taps()
+                if at is not None:
+                    bs["audio"] = stream.fir_history_init(c, at.shape[1], torch.float32, dev)
                 gs[f"b{bi}"] = bs
             state[f"g{g.index}"] = gs
         return state
@@ -372,6 +395,42 @@ class CompiledReceiver:
         self._check_input(iq, torch.complex64, self.block)
         return self._step_raw(state, torch.view_as_real(iq.contiguous()).reshape(-1))
 
+    def step_many_u8(self, state: dict, raws: torch.Tensor):
+        """Burst entry: ``raws [k, 2T]`` uint8 -> k single steps, outputs
+        stacked along a leading ``k`` axis (bit-equal to k calls of
+        :meth:`step_u8`)."""
+        return self._many(self.step_u8, state, raws)
+
+    def step_many_f32(self, state: dict, raws: torch.Tensor):
+        """Burst form of :meth:`step_f32` over ``raws [k, 2T]``."""
+        return self._many(self.step_f32, state, raws)
+
+    def step_many_iq(self, state: dict, iqs: torch.Tensor):
+        """Burst form of :meth:`step_iq` over ``iqs [k, T]``."""
+        return self._many(self.step_iq, state, iqs)
+
+    @staticmethod
+    def _many(step, state: dict, blocks: torch.Tensor):
+        outs = []
+        for blk in blocks:
+            state, o = step(state, blk)
+            outs.append(o)
+        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    @staticmethod
+    def unstack_outputs(outputs: dict, k: int) -> list[dict]:
+        """Burst outputs -> k per-block output dicts (views along the
+        leading axis), each in the form one step emits."""
+        return [{key: v[i] for key, v in outputs.items()} for i in range(k)]
+
+    def _tap(self, zr: torch.Tensor, zi: torch.Tensor) -> torch.Tensor:
+        """Planar ``[2, T']`` tap: the last ``tap_samples`` samples (the
+        scope FFTs the freshest window, mainwindow.cpp:418-427)."""
+        lim = self.tap_samples
+        if lim is not None and zr.shape[-1] > lim:
+            zr, zi = zr[..., -lim:], zi[..., -lim:]
+        return torch.stack([zr, zi])
+
     def _step_raw(self, state: dict, raw: torch.Tensor):
         if self.plan.dc_correct:
             mean, x = self._run(self.dc_ingest, state["dc"], raw)
@@ -385,8 +444,17 @@ class CompiledReceiver:
         if p:
             new_state["xtail"] = torch.stack([x[0][-p:], x[1][-p:]])
         outputs: dict[str, torch.Tensor] = {}
+        if "main" in self.emit_taps:
+            outputs["tap/main"] = self._tap(*x)
         for g in self.plan.groups:
             gk = f"g{g.index}"
+            zr, zi = zs[gk]
+            if gk in self.emit_taps:
+                outputs[f"tap/{gk}"] = self._tap(zr[0], zi[0])
+            if g.publishes_iq:
+                outputs[f"iq/{g.zmq_topic}"] = compress.compress_style1_planar(
+                    (zr[0], zi[0]), float(g.compress_scale)
+                )
             for bi in range(len(g.buckets)):
                 new_state[gk][f"b{bi}"] = self._bucket_step(
                     g, bi, state[gk][f"b{bi}"], zs[gk], outputs, state
@@ -475,7 +543,8 @@ class CompiledReceiver:
 
     def _bucket_step(self, g, bi: int, bs: dict, z, outputs: dict, state: dict) -> dict:
         """One sub-VFO bucket on the planar group baseband ``z`` ``[1, Tg]``:
-        mix + cascade, USB demod, audio low-pass, int16 quantize."""
+        mix + cascade, per-channel scope taps, late /5 /6, USB demod, audio
+        low-pass (direct or overlap-save FFT), int16 quantize."""
         b = g.buckets[bi]
         bk = f"g{g.index}/b{bi}"
         fs_b = b.mix_fs(g.out_rate)
@@ -506,8 +575,19 @@ class CompiledReceiver:
         else:
             nbs["nco"], y = nco.mix_block_planar(bs["nco"], (zr[0], zi[0]), fs_b)
             nbs["cascade"] = []
+        for ci, s in enumerate(b.subs):
+            # the decimated pre-demod baseband, where the reference's
+            # per-VFO scope taps it (vfo.cpp:290-295, before the late stage)
+            if s.topic in self.emit_taps:
+                outputs[f"tap/{s.topic}"] = self._tap(y[0][ci], y[1][ci])
+        if f"{bk}/late" in self._c:
+            nbs["late"], y = polyphase.late_decim_apply(
+                bs["late"], y, self._c[f"{bk}/late"], b.late_factor
+            )
         nbs["usb"], audio = usbdemod.usb_block_planar(bs["usb"], y, self._c[f"{bk}/hilbert"])
-        if f"{bk}/audio" in self._c:
+        if bk in self._oss:
+            nbs["audio"], audio = ossfft.oss_block(bs["audio"], audio, self._oss[bk])
+        elif f"{bk}/audio" in self._c:
             nbs["audio"], audio = fir.conv_block(bs["audio"], audio, self._c[f"{bk}/audio"])
         outputs[f"pcm/{bk}"] = usbdemod.quantize_i16(audio, self._c[f"{bk}/gains"]).reshape(-1)
         return nbs
@@ -528,20 +608,55 @@ class CompiledReceiver:
                     out[f"audio/{s.topic}"] = flat[ci * ta : (ci + 1) * ta]
         return out
 
+    def tap_rates(self) -> dict[str, int]:
+        """Valid scope tap name -> its sample rate: "main" (input rate),
+        "g<i>" (group output rate), or a sub-VFO topic (its pre-late rate).
+        Raises ``ValueError`` for a topic used twice (the two channels'
+        outputs would shadow each other) or a topic named like a built-in
+        tap ("main", "g<i>")."""
+        r: dict[str, int] = {"main": self.plan.fs}
+        for g in self.plan.groups:
+            r[f"g{g.index}"] = g.out_rate
+        seen: set[str] = set()
+        for g in self.plan.groups:
+            for b in g.buckets:
+                for s in b.subs:
+                    if s.topic in seen:
+                        raise ValueError(
+                            f"duplicate sub-VFO topic {s.topic!r}: each "
+                            f"channel needs a unique topic — its "
+                            f"audio/{s.topic} output (and scope tap) would "
+                            f"shadow the other channel's"
+                        )
+                    if s.topic in r:
+                        raise ValueError(
+                            f"scope tap name collision: sub-VFO topic "
+                            f"{s.topic!r} clashes with the built-in "
+                            f"{s.topic!r} tap (reserved names: 'main', "
+                            f"'g<i>')"
+                        )
+                    seen.add(s.topic)
+                    r[s.topic] = b.out_rate * b.late_factor
+        return r
+
     def rates(self) -> dict[str, int]:
         """Output key -> sample rate (the ZMQ wire rate field)."""
-        return {
-            f"audio/{s.topic}": b.out_rate
-            for g in self.plan.groups
-            for b in g.buckets
-            for s in b.subs
-        }
+        r: dict[str, int] = {}
+        for g in self.plan.groups:
+            if g.publishes_iq:
+                r[f"iq/{g.zmq_topic}"] = g.out_rate
+            for b in g.buckets:
+                for s in b.subs:
+                    r[f"audio/{s.topic}"] = b.out_rate
+        return r
 
     def output_shapes(self) -> dict[str, tuple[int, ...]]:
         """Public (post-:meth:`split_audio`) output key -> shape."""
         shapes: dict[str, tuple[int, ...]] = {}
         for g in self.plan.groups:
             tg = self.block >> g.stages
+            if g.publishes_iq:
+                shapes[f"iq/{g.zmq_topic}"] = (tg,)
             for b in g.buckets:
                 ta = (tg >> b.stages) // b.late_factor
                 for s in b.subs:

@@ -29,7 +29,7 @@ import torch
 import __graft_entry__ as graft
 from sdrreceiver_tpu.graph import build_plan as jbuild_plan
 from sdrreceiver_tpu.graph.compiler import CompiledReceiver as JaxReceiver
-from sdrreceiver_tpu_torch.flagship import benchmark_config
+from sdrreceiver_tpu_torch.flagship import altrate_config, benchmark_config
 from sdrreceiver_tpu_torch.graph import compiler as port_compiler
 from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
 from sdrreceiver_tpu_torch.graph.config import parse_ini_text
@@ -205,6 +205,13 @@ def test_xtail_len_equals_jax(block):
     assert CompiledReceiver(plan, block).xtail_len() == JaxReceiver(jplan, block).xtail_len()
 
 
+@pytest.mark.parametrize("block,want", [(153600, 2304), (480000, 3328)], ids=lambda b: f"{b}")
+def test_xtail_len_equals_jax_altrate(block, want):
+    plan = build_plan(altrate_config())
+    jplan = jbuild_plan(graft._altrate_config())
+    assert CompiledReceiver(plan, block).xtail_len() == JaxReceiver(jplan, block).xtail_len() == want
+
+
 @pytest.mark.parametrize(
     "fs,stages,data_len,base",
     [(1536000, 3, 1536000, None), (1536000, 3, 1536000, 256), (384000, 5, 384000, None),
@@ -219,62 +226,14 @@ def test_layout_warmup_equals_pick_warmup(fs, stages, data_len, base):
     )
 
 
-def _altrate_plan():
-    cfg = graft._altrate_config()
-    from test_torch_modules import _to_ini
-
-    return build_plan(parse_ini_text(_to_ini(cfg)))
-
-
-def _iq_group_plan():
-    ini = """
-sample_rate=1536000
-center_frequency=1545600000
-[main_vfos]
-size=1
-1\\frequency=1545116000
-1\\out_rate=384000
-1\\zmq_address=tcp://*:6010
-1\\zmq_topic=MAIN1
-[vfos]
-size=1
-1\\frequency=1545005146
-1\\data_rate=600
-1\\topic=VFO01
-"""
-    return build_plan(parse_ini_text(ini))
-
-
-def _long_audio_plan():
-    ini = """
-sample_rate=1536000
-center_frequency=1545600000
-[main_vfos]
-size=1
-1\\frequency=1546096000
-1\\out_rate=192000
-[vfos]
-size=1
-1\\frequency=1546005000
-1\\data_rate=10500
-1\\filter_bandwidth=1000
-1\\topic=NARROW
-"""
-    return build_plan(parse_ini_text(ini))
-
-
 @pytest.mark.parametrize(
     "make,kwargs,match",
-    [
-        (_altrate_plan, {}, "late /5"),
-        (lambda: build_plan(benchmark_config()), {"emit_taps": ("main",)}, "scope taps"),
-        (_iq_group_plan, {}, "publishes IQ"),
-        (_long_audio_plan, {}, "audio filters"),
-        (lambda: build_plan(benchmark_config()), {"block_samples": 1024}, "warm-up"),
-    ],
-    ids=["late5", "emit_taps", "iq_topic", "ossfft_filter", "short_block"],
+    [(lambda: build_plan(benchmark_config()), {"block_samples": 1024}, "warm-up")],
+    ids=["short_block"],
 )
 def test_unported_plans_raise(make, kwargs, match):
+    """The one refusal left: a block shorter than the stateless kernels'
+    warm-up (the JAX package runs its jnp cascade there)."""
     with pytest.raises(NotImplementedError, match=match):
         CompiledReceiver(make(), **kwargs)
 
@@ -294,7 +253,7 @@ def test_port_never_imports_jax():
         "import sdrreceiver_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 15, mods\n"
+        "assert len(mods) >= 34, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrreceiver_tpu.'))]\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
