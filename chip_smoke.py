@@ -25,6 +25,25 @@ its result and failing the script (non-zero exit) if it fails:
   9. alt-rate timing: the step (kernel and plain path), each mix-cascade
      site, the CLI's realtime factor, overlap-save vs direct FIR, peak
      device memory
+ 10. block sizes: the DC kernel against its plain version at T = 4224 and
+     72,000 (no multiple of 256); the flagship at block 2048 (no carried
+     tail: no mix-cascade, the stateful cascade) against one 65,536-sample
+     step and against its plain path, with its step time; the flagship
+     through ``process-file --block 4224``; the 288 ksps plan with DC
+     correction at block 72,000 (Fs/4; its own block is 57,600)
+ 11. live ``run`` from a loopback rtl_tcp server at the flagship's own
+     block of 384,000: paced at 1.536 Msps (startup commands, no drop, no
+     reconnect, launches per block, ZMQ frames bit-equal to ``step_u8`` on
+     the same bytes, tones, a UDP retune reaching the server), then
+     unpaced (the live path's Msamples/s)
+ 12. ``run --iq --scope main --control-port``, paced: no block behind
+     realtime, the control socket's stats / set_scope / set_fft / spectrum
+     and an unknown tap; the step with every tap compiled in vs none
+ 13. local USB through the librtlsdr stub (``tests/fake_librtlsdr.cpp``,
+     built with g++): ``devices``, then ``run`` finds the stub's tone as
+     1 kHz audio, sets the bias tee and closes the device
+ 14. ``bench`` on the flagship, kernel path and ``--plain`` in turns, at
+     blocks 384,000 and 1,536,000
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -33,12 +52,18 @@ The line before the last is a JSON summary of the kernels; the last line is
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import io
 import json
+import os
 import pathlib
 import shutil
+import socket
+import struct
 import subprocess
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
@@ -100,6 +125,8 @@ size=3
 3\\topic=VFO13
 """
 IQ_BLOCK = 384_000
+LIVE_BLOCK = 384_000  # the reference's Fs/4 buffer, run's default on the flagship
+REPO = pathlib.Path(__file__).resolve().parent
 
 
 def fail(msg: str) -> None:
@@ -372,6 +399,538 @@ def phase_iq(dev: torch.device) -> dict:
     return {"rx": rx, "direct": direct}
 
 
+def free_port(kind=socket.SOCK_STREAM) -> int:
+    with socket.socket(socket.AF_INET, kind) as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+def flagship_ini(zport: int, remote: str = "") -> str:
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+
+    text = ini_text(benchmark_config()).replace("tcp://*:6003", f"tcp://127.0.0.1:{zport}")
+    return (f"remote_rtl={remote}\n" if remote else "") + text
+
+
+def flagship_stream(n_blocks: int, block: int, seed: int = 0):
+    """(u8 ``[n_blocks, 2*block]``, {topic: tone Hz}): tones at amplitude 4
+    in every third topic, noise 1.0, as in phase 4."""
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+    from sdrreceiver_tpu_torch.io.iqfile import synthesize_channels, to_u8
+
+    plan = build_plan(benchmark_config())
+    subs = sorted((s for g in plan.groups for b in g.buckets for s in b.subs),
+                  key=lambda s: s.config_index)
+    tones = {s.topic: 500 + 37 * i for i, s in enumerate(subs) if i % 3 == 0}
+    iq = synthesize_channels(
+        n_blocks * block, plan.fs, plan.center_frequency,
+        [(s.frequency, tones[s.topic], 4.0) for s in subs if s.topic in tones],
+        noise=1.0, seed=seed,
+    )
+    return to_u8(iq).reshape(n_blocks, 2 * block), tones
+
+
+def kernel_vs_plain_dc(dev, t_len: int, kind: str, rng, reps: int, card: str):
+    """K1 against its plain version at ``t_len`` with the phase-3 limits;
+    (max_abs_err, kernel ms, plain ms)."""
+    from sdrreceiver_tpu_torch.cuda.dckernel import DcIngest
+
+    dck = DcIngest()
+    raw = torch.tensor(rng.integers(0, 256, 2 * t_len, dtype=np.uint8), device=dev)
+    if kind == "f32":
+        raw = raw.float() - 127.0
+    mean = torch.tensor([3.25, -1.5], dtype=torch.float32, device=dev)
+    m_k, (yr_k, yi_k) = dck(mean, raw)
+    m_p, (yr_p, yi_p) = dck.plain(mean, raw)
+    err = max((yr_k - yr_p).abs().max().item(), (yi_k - yi_p).abs().max().item())
+    mrel = ((m_k - m_p).abs() / m_p.abs()).max().item()
+    plain_ms, ms = in_turns(lambda: dck.plain(mean, raw), lambda: dck(mean, raw), reps)
+    print(f"kernel dc_ingest {kind} T={t_len} ({t_len % 256} past a multiple of 256): "
+          f"y max_abs_err={err:.3e} (limit 1e-3), mean rel_err={mrel:.3e} (limit 1e-4); "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms {card}")
+    if not err <= 1e-3 or not mrel <= 1e-4:
+        fail(f"dc_ingest {kind} T={t_len} disagrees with its plain version")
+    return err, ms, plain_ms
+
+
+def path_launches(rx) -> dict[str, int]:
+    """Launch counts of every kernel wrapper on ``rx``'s path."""
+    out = {"dc_ingest": rx.dc_ingest.launches} if rx.plan.dc_correct else {}
+    out.update({f"mix_cascade {k}": mc.launches for k, (mc, _) in rx.mix_cascades().items()})
+    return out
+
+
+def steps_audio(rx, blocks) -> list[dict]:
+    """Per-block audio (host numpy) of ``rx`` stepped over u8 ``blocks``."""
+    st, out = rx.init_state(), []
+    for b in blocks:
+        st, o = rx.step_u8(st, b)
+        out.append({k: v.cpu().numpy() for k, v in rx.split_audio(o).items()})
+    return out
+
+
+def joined(outs: list[dict]) -> dict:
+    return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
+
+
+def phase_blocks(dev, card: str, reps: int) -> dict:
+    """10. The two block-size faults, closed."""
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    rng = np.random.default_rng(10)
+    out = {"err": 0.0}
+    for t_len in (4224, 72_000):
+        for kind in ("u8", "f32"):
+            err, ms, plain_ms = kernel_vs_plain_dc(dev, t_len, kind, rng, reps, card)
+            out["err"] = max(out["err"], err)
+            out[(t_len, kind)] = (ms, plain_ms)
+
+    plan = build_plan(benchmark_config())
+    short = CompiledReceiver(plan, 2048, device=dev)
+    short_plain = CompiledReceiver(plan, 2048, device=dev, use_kernels=False)
+    long_ = CompiledReceiver(plan, 65_536, device=dev)
+    raw, tones = flagship_stream(1, 65_536, seed=10)
+    raw = torch.tensor(raw, device=dev)
+    blocks = raw.reshape(32, 2 * 2048)
+    short.dc_ingest.launches = 0
+    kern = steps_audio(short, blocks)
+    torch.cuda.synchronize()
+    print(f"flagship block 2048: xtail {short.xtail_len()}, mix-cascade sites "
+          f"{sorted(short.mix_cascades())}; over 32 blocks dc_ingest launches "
+          f"{short.dc_ingest.launches} (expected 32), no mix-cascade")
+    if short.xtail_len() or short.mix_cascades() or short.dc_ingest.launches != 32:
+        fail("flagship at block 2048: not the short-block path")
+    audio_diff(joined(kern), joined(steps_audio(long_, raw)),
+               "flagship 32 blocks of 2048 vs one block of 65,536", flip_limit=None)
+    audio_diff({f"{i}/{k}": v for i, o in enumerate(kern) for k, v in o.items()},
+               {f"{i}/{k}": v for i, o in enumerate(steps_audio(short_plain, blocks))
+                for k, v in o.items()},
+               "flagship block 2048 kernel path vs plain path")
+    st = {"s": short.init_state(), "i": 0}
+
+    def step():
+        st["i"] = (st["i"] + 1) % 32
+        st["s"], _ = short.step_u8(st["s"], blocks[st["i"]])
+
+    out["short_ms"] = cuda_ms(step, 5 * reps)
+    out["short_rt"] = 1000.0 * 2048 / plan.fs / out["short_ms"]
+    print(f"flagship step_u8 block=2048: {out['short_ms']:.3f} ms/step, realtime "
+          f"x{out['short_rt']:.2f} (a block is {1000.0 * 2048 / plan.fs:.3f} ms) {card}")
+
+    d = WORK / "b4224"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ini, iq = d / "flag.ini", d / "flag.u8"
+    ini.write_text(flagship_ini(free_port()))
+    cli("synth", "-s", ini, "--out", iq, "--seconds", 16 * 4224 / plan.fs, "--amplitude", 4,
+        "--noise", 1.0)
+    run = ("process-file", "-s", ini, "--iq", iq, "--block", 4224, "--device", DEVICE)
+    with receivers_built() as built:
+        summary = cli(*run, "--out", d / "k")
+    (rx,) = built
+    print(f"flagship --block 4224: {summary['blocks']} blocks, xtail {rx.xtail_len()}, "
+          f"mix-cascade sites {sorted(rx.mix_cascades())}, dc_ingest launches "
+          f"{rx.dc_ingest.launches} (expected {summary['blocks']})")
+    if rx.block != 4224 or rx.dc_ingest.launches != summary["blocks"] or not summary["blocks"]:
+        fail("flagship --block 4224: the DC kernel did not run once per block")
+    cli(*run, "--out", d / "p", "--plain")
+    audio_diff(read_audio(d / "k"), read_audio(d / "p"), "flagship --block 4224 kernel vs plain")
+    out["b4224_launches"] = rx.dc_ingest.launches
+
+    # a global key: ahead of the ini's first section.  The plan's own block
+    # is 57,600 (a multiple of 256); 72,000 (Fs/4) is a multiple of its
+    # chain divisor of 6 and not of 256
+    plan288 = build_plan(parse_ini_text("correct_dc_bias=1\n" + INI_288))
+    r288 = CompiledReceiver(plan288, 72_000, device=dev)
+    p288 = CompiledReceiver(plan288, 72_000, device=dev, use_kernels=False)
+    raw288 = torch.tensor(rng.integers(100, 156, (4, 2 * r288.block), dtype=np.uint8), device=dev)
+    r288.dc_ingest.launches = 0
+    k288 = steps_audio(r288, raw288)
+    print(f"288k with DC correction: block {r288.block} ({r288.block % 256} past a multiple "
+          f"of 256), dc_ingest launches {r288.dc_ingest.launches} (expected 4)")
+    if r288.block != 72_000 or r288.dc_ingest.launches != 4:
+        fail("288k with DC correction: the DC kernel did not run at block 72,000")
+    audio_diff(joined(k288), joined(steps_audio(p288, raw288)), "288k+DC kernel vs plain")
+    out["r288_launches"] = r288.dc_ingest.launches
+    return out
+
+
+class LoopbackRtlTcp(threading.Thread):
+    """An rtl_tcp server on localhost serving ``blocks`` (u8 arrays) to one
+    client: greeting, the client's 5 startup commands, ``delay`` s for ZMQ
+    subscribers to join, the blocks (one every ``interval`` s, or as fast
+    as the socket takes them), then one byte every 0.5 s (never a whole
+    block) until the client leaves.  ``commands`` holds every 5-byte
+    command received, startup and later."""
+
+    def __init__(self, blocks, interval: float | None, delay: float = 1.0):
+        super().__init__(daemon=True)
+        self.sock = socket.socket()
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(1)
+        self.port = self.sock.getsockname()[1]
+        self.blocks, self.interval, self.delay = blocks, interval, delay
+        self.commands: list[tuple[int, int]] = []
+        self.started = threading.Event()
+        self.error: str | None = None
+        self.start()
+
+    def _read_commands(self, conn) -> None:
+        buf = b""
+        while chunk := conn.recv(4096):
+            buf += chunk
+            while len(buf) >= 5:
+                self.commands.append((buf[0], struct.unpack(">I", buf[1:5])[0]))
+                buf = buf[5:]
+
+    def run(self) -> None:
+        self.sock.settimeout(60)
+        try:
+            conn, _ = self.sock.accept()
+        except OSError as e:
+            self.error = f"accept: {e}"
+            return
+        with conn:
+            conn.sendall(b"RTL0" + struct.pack(">II", 5, 29))
+            reader = threading.Thread(target=self._read_commands, args=(conn,), daemon=True)
+            reader.start()
+            deadline = time.monotonic() + 30
+            while len(self.commands) < 5 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            time.sleep(self.delay)
+            self.started.set()
+            try:
+                t0 = time.perf_counter()
+                for i, b in enumerate(self.blocks):
+                    if self.interval:
+                        time.sleep(max(0.0, t0 + i * self.interval - time.perf_counter()))
+                    conn.sendall(b.tobytes())
+                end = time.monotonic() + 120
+                while time.monotonic() < end:
+                    time.sleep(0.5)
+                    conn.sendall(b"\x7f")
+            except OSError:
+                pass  # the client left
+            reader.join(timeout=10)
+        self.sock.close()
+
+
+def udp_ask(port: int, req: dict, timeout: float = 5.0) -> dict:
+    with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as sk:
+        sk.settimeout(timeout)
+        sk.sendto(json.dumps(req).encode(), ("127.0.0.1", port))
+        return json.loads(sk.recv(65536))
+
+
+def await_control(port: int, deadline_s: float = 120.0) -> dict:
+    """The first ``stats`` reply of a control socket that may not be bound
+    yet (``run`` binds it once its source is open): asks every 0.2 s."""
+    end = time.monotonic() + deadline_s
+    while True:
+        try:
+            return udp_ask(port, {"stats": True}, timeout=0.2)
+        except OSError:
+            if time.monotonic() > end:
+                raise
+
+
+class Subscriber:
+    """ZMQ SUB on ``port`` for ``topics``, connected before ``run`` binds;
+    collects frames on its own thread until :meth:`close`."""
+
+    def __init__(self, port: int, topics):
+        import zmq
+
+        self.ctx = zmq.Context()
+        self.sock = self.ctx.socket(zmq.SUB)
+        self.sock.setsockopt(zmq.RECONNECT_IVL, 10)
+        self.sock.connect(f"tcp://127.0.0.1:{port}")
+        for t in topics:
+            self.sock.setsockopt(zmq.SUBSCRIBE, t.encode())
+        self.frames: list[list[bytes]] = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._go, daemon=True)
+        self._thread.start()
+
+    def _go(self) -> None:
+        while not self._stop.is_set():
+            if self.sock.poll(50):
+                self.frames.append(self.sock.recv_multipart())
+
+    def close(self) -> list[list[bytes]]:
+        time.sleep(0.3)  # the last frames in flight
+        self._stop.set()
+        self._thread.join(timeout=5)
+        self.sock.close(linger=0)
+        self.ctx.term()
+        return self.frames
+
+
+def run_live(argv, during=None) -> tuple[dict, object]:
+    """``run`` through the CLI in this process (its JSON summary and the
+    receiver it built), with ``during()`` on a thread of its own."""
+    th = None
+    if during is not None:
+        th = threading.Thread(target=during, daemon=True)
+        th.start()
+    with receivers_built() as built:
+        summary = cli("run", *argv)
+    if th is not None:
+        th.join(timeout=30)
+    (rx,) = built
+    return summary, rx
+
+
+def phase_rtl_tcp(dev, card: str, reps: int) -> dict:
+    """11. Live run from a loopback rtl_tcp server, flagship, block 384,000."""
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+
+    d = WORK / "live"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    n = 16
+    raw, tones = flagship_stream(n, LIVE_BLOCK, seed=11)
+    watch = sorted(tones)[:3]
+    zport, cport = free_port(), free_port(socket.SOCK_DGRAM)
+    srv = LoopbackRtlTcp(list(raw), interval=LIVE_BLOCK / 1_536_000)
+    ini = d / "rtl.ini"
+    ini.write_text(flagship_ini(zport, f"127.0.0.1:{srv.port}"))
+    sub = Subscriber(zport, watch)
+    retune = {}
+
+    def during():
+        srv.started.wait(timeout=60)
+        time.sleep(1.0)
+        retune["reply"] = udp_ask(cport, {"set_center_freq": 1_545_700_000})
+
+    summary, rx = run_live(["-s", ini, "--device", DEVICE, "--max-blocks", n,
+                            "--control-port", cport], during)
+    frames = sub.close()
+    srv.join(timeout=15)
+    sites = rx.mix_cascades()
+    launches = path_launches(rx)
+    print(f"live rtl_tcp paced at 1.536 Msps: {summary['blocks']} blocks of {rx.block}, "
+          f"ring {summary['ring']}, rtl_tcp {summary['rtl_tcp']}; launches {launches} "
+          f"(expected {n} each)")
+    startup = srv.commands[:5]
+    want = [(0x08, 0), (0x03, 1), (0x0D, 0), (0x02, 1_536_000), (0x01, 1_545_600_000)]
+    print(f"startup commands {startup} (expected {want}); later {srv.commands[5:]}; "
+          f"UDP retune reply {retune.get('reply')}")
+    if startup != want:
+        fail("rtl_tcp startup commands")
+    if summary["blocks"] != n or summary["ring"]["dropped"] or summary["rtl_tcp"]["reconnects"]:
+        fail("live rtl_tcp: blocks dropped or reconnects")
+    if rx.block != LIVE_BLOCK or len(launches) != 5 or any(v != n for v in launches.values()):
+        fail("live rtl_tcp: the main path did not launch each kernel once per block")
+    if retune.get("reply") != {"ok": True, "center_freq": 1_545_700_000} \
+            or (0x01, 1_545_700_000) not in srv.commands[5:]:
+        fail("live rtl_tcp: the UDP retune did not reach the server as a 0x01 command")
+    lat = summary["block_latency_ms"]
+    print(f"live rtl_tcp block_latency_ms p50 {lat['p50']} p95 {lat['p95']} max {lat['max']}, "
+          f"{summary['msamples_per_second']} Msamples/s (paced) {card}")
+
+    direct = CompiledReceiver(rx.plan, LIVE_BLOCK, device=dev)
+    ref = steps_audio(direct, torch.tensor(raw, device=dev))
+    rates = direct.rates()
+    got: dict[str, list[np.ndarray]] = {t: [] for t in watch}
+    for f in frames:
+        topic = f[0].decode()
+        if len(f) != 3 or len(f[0]) != 5 or topic not in got \
+                or struct.unpack("<I", f[1])[0] != rates[f"audio/{topic}"]:
+            fail(f"live rtl_tcp: malformed frame {[len(x) for x in f]} {f[:2]}")
+        got[topic].append(np.frombuffer(f[2], np.int16))
+    for topic, parts in got.items():
+        k = len(parts)
+        want_parts = [o[f"audio/{topic}"] for o in ref[n - k:]]
+        same = k >= n - 1 and all(np.array_equal(a, b) for a, b in zip(parts, want_parts))
+        print(f"live rtl_tcp ZMQ {topic}: {k} frames (of {n}; a late subscriber may miss the "
+              f"first), bit-equal to step_u8 on the same bytes: {same}")
+        if not same:
+            fail(f"live rtl_tcp: {topic} frames differ from direct step_u8")
+        a = np.concatenate(parts[-4:])
+        check_tone(a, rates[f"audio/{topic}"], tones[topic], f"live rtl_tcp {topic}")
+
+    n_fast = 20  # the ring's slots: none can drop however slow the consumer
+    raw20, _ = flagship_stream(n_fast, LIVE_BLOCK, seed=12)
+    srv = LoopbackRtlTcp(list(raw20), interval=None, delay=0.0)
+    ini.write_text(flagship_ini(free_port(), f"127.0.0.1:{srv.port}"))
+    fast, frx = run_live(["-s", ini, "--device", DEVICE, "--max-blocks", n_fast])
+    srv.join(timeout=15)
+    rt = fast["msamples_per_second"] * 1e6 / frx.plan.fs
+    print(f"live rtl_tcp unpaced, {fast['blocks']} blocks of {frx.block}: "
+          f"{fast['msamples_per_second']} Msamples/s, realtime x{rt:.2f}, block_latency_ms "
+          f"p50 {fast['block_latency_ms']['p50']}, ring {fast['ring']} {card}")
+    if fast["blocks"] != n_fast or fast["ring"]["dropped"] \
+            or any(v != n_fast for v in path_launches(frx).values()):
+        fail("live rtl_tcp unpaced: blocks dropped or kernels not launched")
+
+    # the kernels at the live path's shapes, against their plain versions
+    rng = np.random.default_rng(11)
+    err, dc_ms, dc_plain_ms = kernel_vs_plain_dc(dev, LIVE_BLOCK, "u8", rng, reps, card)
+    mc_err = mc_ms = mc_plain_ms = 0.0
+    for name, (mc, t_len) in sites.items():
+        xr = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
+        xi = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
+        ph = torch.tensor(rng.integers(0, mc.fs, mc.channels), device=dev)
+        yr_k, yi_k = mc(ph, xr, xi)
+        yr_p, yi_p = mc.plain(ph, xr, xi)
+        e = max((yr_k - yr_p).abs().max().item(), (yi_k - yi_p).abs().max().item())
+        p, k = in_turns(lambda: mc.plain(ph, xr, xi), lambda: mc(ph, xr, xi), reps)
+        print(f"live-path mix_cascade {name}: T={t_len} max_abs_err={e:.3e} (limit 2e-3); "
+              f"kernel {k:.4f} ms, plain {p:.4f} ms {card}")
+        if not e <= 2e-3:
+            fail(f"mix_cascade {name} at the live block disagrees with its plain version")
+        mc_err, mc_ms, mc_plain_ms = max(mc_err, e), mc_ms + k, mc_plain_ms + p
+    return {"launches": launches, "dc_err": err, "dc_ms": dc_ms, "dc_plain_ms": dc_plain_ms,
+            "mc_err": mc_err, "mc_ms": mc_ms, "mc_plain_ms": mc_plain_ms}
+
+
+def phase_scope(dev, card: str, reps: int) -> None:
+    """12. run --iq --scope main --control-port, paced to realtime."""
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+
+    d = WORK / "scope"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    n = 16  # 4 s of signal at realtime
+    raw, _ = flagship_stream(n, LIVE_BLOCK, seed=13)
+    (d / "rec.u8").write_bytes(raw.tobytes())
+    ini = d / "flag.ini"
+    ini.write_text(flagship_ini(free_port()))
+    cport = free_port(socket.SOCK_DGRAM)
+    replies = {}
+
+    def during():
+        replies["stats"] = await_control(cport)
+        time.sleep(0.5)
+        replies["set_scope"] = udp_ask(cport, {"set_scope": "CH000"})
+        time.sleep(1.4)  # past the next frame the scope consumes
+        replies["fft0"] = udp_ask(cport, {"set_fft": 0})
+        replies["fft1"] = udp_ask(cport, {"set_fft": 1})
+        replies["spectrum"] = udp_ask(cport, {"spectrum": 512})
+        replies["bad"] = udp_ask(cport, {"set_scope": "NOPE"})
+
+    summary, rx = run_live(["-s", ini, "--iq", d / "rec.u8", "--device", DEVICE,
+                            "--block", LIVE_BLOCK, "--max-blocks", n, "--scope", "main",
+                            "--control-port", cport], during)
+    slack = summary.get("pacing_slack_ms", {})
+    print(f"run --iq --scope main, paced: {summary['blocks']} blocks, pacing_slack_ms {slack}, "
+          f"block_latency_ms {summary['block_latency_ms']} {card}")
+    if summary["blocks"] != n or slack.get("behind_blocks") != 0:
+        fail("run --iq --scope: fell behind realtime")
+    spec = replies.get("spectrum", {})
+    curve = np.asarray(spec.get("db", []), dtype=np.float64)
+    print(f"control: stats {replies.get('stats')}, set_scope {replies.get('set_scope')}, "
+          f"set_fft {replies.get('fft0')} / {replies.get('fft1')}, spectrum scope "
+          f"{spec.get('scope')} bins {spec.get('bins')} max {curve.max() if curve.size else None} dB")
+    bad = replies.get("bad", {})
+    print(f"unknown tap reply: error {bad.get('error')!r}, {len(bad.get('valid', []))} valid taps")
+    if replies.get("stats") != {"ok": True} \
+            or replies.get("set_scope") != {"ok": True, "scope": "CH000", "rate": rx.tap_rates()["CH000"]} \
+            or replies.get("fft0") != {"ok": True, "fft": 0} \
+            or replies.get("fft1") != {"ok": True, "fft": 1} \
+            or spec.get("bins") != 512 or curve.size != 512 or not np.isfinite(curve).all() \
+            or not curve.max() > 0 or sorted(bad.get("valid", [])) != sorted(rx.tap_rates()):
+        fail("run --scope: the control socket's replies")
+
+    bare = CompiledReceiver(rx.plan, LIVE_BLOCK, device=dev)
+    blocks = torch.tensor(raw, device=dev)
+    st = {"t": rx.init_state(), "n": bare.init_state(), "i": 0}
+
+    def step(r, key):
+        def go():
+            st["i"] = (st["i"] + 1) % n
+            st[key], _ = r.step_u8(st[key], blocks[st["i"]])
+        return go
+
+    no_taps, taps = in_turns(step(bare, "n"), step(rx, "t"), reps)
+    print(f"flagship step_u8 block={LIVE_BLOCK}: {len(rx.emit_taps)} scope taps compiled in "
+          f"{taps:.3f} ms, none {no_taps:.3f} ms (in turns) {card}")
+
+
+def phase_usb(card: str) -> None:
+    """13. Local USB through the librtlsdr stub."""
+    src = REPO / "tests" / "fake_librtlsdr.cpp"
+    if not src.exists():
+        fail(f"{src} is missing: the local USB path cannot be driven")
+    so = REPO / "build" / "libfakertlsdr.so"
+    so.parent.mkdir(exist_ok=True)
+    subprocess.run(["g++", "-O2", "-shared", "-fPIC", "-std=c++17", str(src), "-o", str(so)],
+                   check=True, capture_output=True)
+    os.environ["SDRX_LIBRTLSDR"] = str(so)
+    from sdrreceiver_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["devices"])
+    devs = [json.loads(line) for line in buf.getvalue().splitlines() if line.strip()]
+    print(f"devices (stub): {[(x['index'], x['serial']) for x in devs]}")
+    if rc != 0 or [x["serial"] for x in devs] != ["00000001", "77777777"]:
+        fail("devices: the stub's two devices not listed")
+    d = WORK / "usb"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    zport = free_port()
+    ini = d / "usb.ini"
+    # tests/test_rtlusb.py's USB_INI: a channel 1 kHz below the stub's +fs/8 tone
+    ini.write_text(
+        "sample_rate=1536000\ncenter_frequency=1545600000\n"
+        f"zmq_address=tcp://127.0.0.1:{zport}\nauto_start_tuner_serial=77777777\n"
+        "auto_start_biast=1\ntuner_gain=240\n[main_vfos]\nsize=1\n1\\frequency=1545791000\n"
+        "1\\out_rate=384000\n[vfos]\nsize=1\n1\\frequency=1545791000\n1\\gain=0.2\n"
+        "1\\data_rate=600\n1\\topic=VFO01\n")
+    sub = Subscriber(zport, ["VFO01"])
+    summary, rx = run_live(["-s", ini, "--device", DEVICE, "--block", 49152,
+                            "--max-blocks", 40])
+    frames = sub.close()
+    launches = path_launches(rx)
+    print(f"run on the USB stub: {summary['blocks']} blocks, ring {summary['ring']}, "
+          f"restarts {summary['usb_restarts']}, launches {launches} (expected 40 each), "
+          f"{len(frames)} ZMQ frames {card}")
+    if summary["blocks"] != 40 or not launches or any(v != 40 for v in launches.values()) \
+            or len(frames) < 5:
+        fail("run on the USB stub: blocks, launches or frames missing")
+    pcm = np.concatenate([np.frombuffer(f[2], np.int16) for f in frames[-5:]]).astype(np.float64)
+    spec = np.abs(np.fft.rfft(pcm * np.hanning(len(pcm))))
+    peak = np.argmax(spec) * 12000 / len(pcm)
+    lib = ctypes.CDLL(str(so))
+    for f in ("fake_get_bias_tee", "fake_get_gain", "fake_get_open"):
+        getattr(lib, f).restype = ctypes.c_int
+        getattr(lib, f).argtypes = [ctypes.c_int]
+    state = (lib.fake_get_bias_tee(1), lib.fake_get_gain(1), lib.fake_get_open(1))
+    print(f"USB stub audio peak {peak:.1f} Hz (expected 1000 +-30); device 1 bias tee, gain, "
+          f"open = {state} (expected (1, 240, 0))")
+    if abs(peak - 1000.0) > 30 or state != (1, 240, 0):
+        fail("run on the USB stub: tone, bias tee or close")
+
+
+def phase_bench(card: str) -> dict:
+    """14. bench on the flagship, kernel path and --plain in turns."""
+    d = WORK / "bench"
+    d.mkdir(parents=True, exist_ok=True)
+    ini = d / "flag.ini"
+    ini.write_text(flagship_ini(free_port()))
+    out = {}
+    for block in (LIVE_BLOCK, 1_536_000):
+        runs = {"plain": [], "kernels": []}
+        for mode in ("plain", "kernels", "kernels", "plain"):
+            extra = ("--plain",) if mode == "plain" else ()
+            r = cli("bench", "-s", ini, "--device", DEVICE, "--block", block, "--blocks", 20, *extra)
+            if r["mode"] != mode or r["block_samples"] != block:
+                fail(f"bench: {r['mode']} at {r['block_samples']}")
+            runs[mode].append(r)
+        for mode, rs in runs.items():
+            print(f"bench flagship block={block} {mode}: "
+                  f"{[r['msamples_per_second'] for r in rs]} Msamples/s, realtime "
+                  f"{[r['realtime_factor'] for r in rs]} (device {rs[0]['device']}) {card}")
+        out[block] = runs
+    return out
+
+
 def phase_alt_timing(dev, card: str, alt: dict, iqr: dict, reps: int) -> dict:
     """9. Alt-rate step and kernels on the card; overlap-save vs direct."""
     from sdrreceiver_tpu_torch.cuda.dckernel import DcIngest
@@ -635,6 +1194,14 @@ def main() -> None:
     at = phase_alt_timing(dev, card, alt, iqr, reps)
     alt_mc = sum(n for k, n in alt["rx_launches"].items() if k.startswith("mix_cascade"))
 
+    # ---- 10-14. block sizes and the live entry ----
+    blk = phase_blocks(dev, card, reps)
+    live = phase_rtl_tcp(dev, card, reps)
+    phase_scope(dev, card, reps)
+    phase_usb(card)
+    phase_bench(card)
+    live_mc = sum(n for k, n in live["launches"].items() if k.startswith("mix_cascade"))
+
     kernels = [
         {"name": "dc_ingest", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
@@ -658,6 +1225,27 @@ def main() -> None:
          "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
          "launches": alt_mc, "max_abs_err": at["mc_err"],
          "ms": at["mc_ms"], "plain_ms": at["mc_plain_ms"]},
+        {"name": "dc_ingest (partial last tile, u8 T=4224: flagship --block 4224)",
+         "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
+         "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
+         "launches": blk["b4224_launches"], "max_abs_err": blk["err"],
+         "ms": blk[(4224, "u8")][0], "plain_ms": blk[(4224, "u8")][1]},
+        {"name": "dc_ingest (partial last tile, u8 T=72000: 288k plan with DC)",
+         "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
+         "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
+         "launches": blk["r288_launches"], "max_abs_err": blk["err"],
+         "ms": blk[(72_000, "u8")][0], "plain_ms": blk[(72_000, "u8")][1]},
+        {"name": "dc_ingest (live run over rtl_tcp, u8 T=384000)", "route": "cuda",
+         "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
+         "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
+         "launches": live["launches"]["dc_ingest"], "max_abs_err": live["dc_err"],
+         "ms": live["dc_ms"], "plain_ms": live["dc_plain_ms"]},
+        {"name": "mix_cascade (live run over rtl_tcp, block 384000, 4 sites)", "route": "cuda",
+         "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
+         "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
+         "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
+         "launches": live_mc, "max_abs_err": live["mc_err"],
+         "ms": live["mc_ms"], "plain_ms": live["mc_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

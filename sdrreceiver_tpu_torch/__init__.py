@@ -14,10 +14,13 @@ Subpackages:
   graph    ini config -> ReceiverPlan -> CompiledReceiver (one step per
            ingest block)
   core     streaming helpers, checkpoints, the host pipeline runner
-  obs      pipeline metrics, the plan cost model, the spectrum scope
-  io       IQ files, test-signal synthesis, WAV output, ZMQ egress
-  cli      ``python -m sdrreceiver_tpu_torch`` (plan, synth, process-file)
+  obs      pipeline metrics, the plan cost model, the spectrum scope and
+           the live, switchable scope
+  io       IQ files, test-signal synthesis, WAV output, ZMQ egress, the
+           rtl_tcp client, the librtlsdr binding, the native block ring
+  cli      ``python -m sdrreceiver_tpu_torch`` (plan, synth, process-file,
+           run, devices, bench) and the UDP control socket
   flagship the configurations the port is driven and measured with
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

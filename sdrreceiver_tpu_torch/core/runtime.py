@@ -24,30 +24,33 @@ __all__ = ["run_pipeline"]
 
 
 class _Fetched:
-    """One step's outputs on their way to the host.  On CUDA each kept key
-    is copied into a fresh pinned buffer (``non_blocking``) and an event
-    marks the copies' end; the caching host allocator keeps a buffer out of
-    reuse while a callback still holds a view of it, so nothing is
-    rewritten before it is consumed."""
+    """One step's outputs on their way to the host.  On CUDA each key the
+    fetch filter keeps when the step is queued is copied into a fresh
+    pinned buffer (``non_blocking``) and an event marks the copies' end;
+    the caching host allocator keeps a buffer out of reuse while a callback
+    still holds a view of it, so nothing is rewritten before it is
+    consumed.  :meth:`numpy` asks the filter again, as the JAX runtime
+    filters at publish time: a key it now drops is not delivered, and a key
+    it now keeps (a live scope switched in between) is copied then."""
 
     def __init__(self, outputs: dict, keep: Callable[[str], bool], device: torch.device):
-        outputs = {k: v for k, v in outputs.items() if keep(k)}
+        self.outputs = outputs
+        self.host: dict[str, torch.Tensor] = {}
         self.event = None
         if device.type == "cuda":
-            host = {}
             for k, v in outputs.items():
-                h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                h.copy_(v, non_blocking=True)
-                host[k] = h
+                if keep(k):
+                    h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+                    h.copy_(v, non_blocking=True)
+                    self.host[k] = h
             self.event = torch.cuda.Event()
             self.event.record()
-            outputs = host
-        self.outputs = outputs
 
-    def numpy(self) -> dict[str, np.ndarray]:
+    def numpy(self, keep: Callable[[str], bool]) -> dict[str, np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        return {k: v.numpy() for k, v in self.outputs.items()}
+        return {k: self.host.get(k, v).cpu().numpy()
+                for k, v in self.outputs.items() if keep(k)}
 
 
 def _upload(rx, block) -> torch.Tensor:
@@ -130,7 +133,7 @@ def run_pipeline(
         if unit is None:
             return 0
         fetched, k = unit
-        host = fetched.numpy()
+        host = fetched.numpy(keep)
         if on_outputs is None:
             return 0
         frames = [host] if k is None else rx.unstack_outputs(host, k)
@@ -149,10 +152,12 @@ def run_pipeline(
         for blk, k in units:
             t0 = time.perf_counter()
             state, outs = _step(rx, state, _upload(rx, blk), raw_u8, k is not None)
-            fetched = _Fetched(outs, keep, rx.device)
-            # publish the previous unit while this one computes
+            # publish the previous unit while this one computes; then
+            # queue this one's copies, so the filter's first answer has
+            # seen every earlier callback and is the one it gives at
+            # publish unless the filter changes in between
             sent = publish(pending)
-            pending = (fetched, k)
+            pending = (_Fetched(outs, keep, rx.device), k)
             t_compute = time.perf_counter() - t0
             slack = 0.0
             if realtime_fs:

@@ -33,8 +33,8 @@ class DcIngest(torch.nn.Module):
     """``(mean [2] f32, raw [2T] u8 or f32) -> (new_mean [2], (yr, yi))``.
 
     CPU tensors take :func:`dc_ingest_plain`.  CUDA tensors launch the
-    kernel (T a multiple of 256, ``raw`` contiguous and 16-byte aligned) or
-    raise.  ``launches`` counts kernel launches."""
+    kernel (any T >= 1; ``raw`` contiguous and 16-byte aligned) or raise.
+    ``launches`` counts kernel launches."""
 
     def __init__(self):
         super().__init__()
@@ -50,11 +50,8 @@ class DcIngest(torch.nn.Module):
             raise ValueError(f"DcIngest: unsupported device {raw.device}")
         if raw.dtype not in (torch.uint8, torch.float32):
             raise TypeError(f"DcIngest: raw must be uint8 or float32, got {raw.dtype}")
-        if raw.dim() != 1 or raw.numel() % 512:
-            raise ValueError(
-                f"DcIngest: raw must be [2T] with T a multiple of 256, got "
-                f"{tuple(raw.shape)}"
-            )
+        if raw.dim() != 1 or raw.numel() < 2 or raw.numel() % 2:
+            raise ValueError(f"DcIngest: raw must be interleaved [2T], got {tuple(raw.shape)}")
         if not raw.is_contiguous() or raw.data_ptr() % 16:
             raise ValueError("DcIngest: raw must be contiguous and 16-byte aligned")
         if (
@@ -69,7 +66,8 @@ class DcIngest(torch.nn.Module):
         yr = torch.empty(t_len, dtype=torch.float32, device=dev)
         yi = torch.empty(t_len, dtype=torch.float32, device=dev)
         new_mean = torch.empty(2, dtype=torch.float32, device=dev)
-        scratch = torch.empty(2, t_len // 256, 2, dtype=torch.float32, device=dev)
+        # one (re, im) pair per tile of at least 256 samples
+        scratch = torch.empty(2, -(-t_len // 256), 2, dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = build.library().dc_ingest_launch(

@@ -24,11 +24,16 @@ re-derived from the block's tail.  So the state stays in the JAX package's
 canonical layout, and :meth:`export_state` / :meth:`import_state` cross
 checkpoints both ways.
 
+A block shorter than the kernels' warm-up has no carried ``xtail`` (the
+JAX package's rule, so both packages' states keep one layout): there every
+group and bucket runs the stateful path instead, the NCO mix then the
+half-band cascade on its carried ``cascade`` histories, as the JAX package
+does at such blocks.  The choice is made at construction from the plan and
+the block; the DC kernel runs at every block.
+
 Scope taps (``emit_taps``) add ``tap/<name>`` outputs: the post-DC input
 ("main"), a group's output ("g<i>") or a sub-VFO's decimated pre-late
-baseband (its topic).  One refusal remains: a block shorter than the
-stateless kernels' warm-up raises ``NotImplementedError`` (the JAX package
-runs its jnp cascade there).
+baseband (its topic).
 """
 
 from __future__ import annotations
@@ -171,21 +176,9 @@ class CompiledReceiver:
             raise ValueError(
                 f"block of {self.block} samples not a multiple of chain divisor {div}"
             )
-        self._refuse_short_block()
         self._build_consts()
 
     # ------------------------------------------------------------ checks
-    def _refuse_short_block(self) -> None:
-        cascades = any(
-            (not g.direct and g.stages >= 1) or any(b.stages >= 1 for b in g.buckets)
-            for g in self.plan.groups
-        )
-        if cascades and not self.xtail_len():
-            raise NotImplementedError(
-                f"block of {self.block} samples is shorter than the warm-up the "
-                f"stateless cascade kernels need"
-            )
-
     def _check_input(self, raw: torch.Tensor, dtype: torch.dtype, n: int) -> None:
         if raw.device != self.device or raw.dtype != dtype or raw.shape != (n,):
             raise ValueError(
@@ -203,7 +196,10 @@ class CompiledReceiver:
         self._hb1 = fir.prepare_taps(hb, 1, dev)
         self._c: dict[str, torch.Tensor] = {}
         self._oss: dict[str, dict] = {}
-        cands = [g for g in plan.groups if not g.direct and g.stages >= 1]
+        # the stateless mix-cascade kernels need the carried xtail to warm
+        # up from; without one every cascade runs the stateful path
+        stateless = bool(self.xtail_len())
+        cands = [g for g in plan.groups if not g.direct and g.stages >= 1] if stateless else []
         # one kernel call for every group front when two or more cascade:
         # they all mix the SAME full-rate stream, read once per tile
         self._merged = None
@@ -227,7 +223,7 @@ class CompiledReceiver:
             for bi, b in enumerate(g.buckets):
                 bk = f"g{g.index}/b{bi}"
                 c = b.channels
-                if b.stages >= 1:
+                if stateless and b.stages >= 1:
                     self._bucket_mc[bk] = MixCascade(
                         [b.stages] * c, b.mix_fs(g.out_rate), b.mixer_freqs(), dev
                     )
@@ -489,9 +485,13 @@ class CompiledReceiver:
             ngs: dict[str, Any] = {}
             if g.direct:
                 zs[gk] = (xr[None], xi[None])
-            elif g.stages == 0:
-                ngs["nco"], zs[gk] = nco.mix_block_planar(gs["nco"], x, fs)
-                ngs["cascade"] = []
+            elif g.index not in merged and g.index not in self._group_mc:
+                # mix-only groups, and every group at a block too short for
+                # the kernels: the stateful path on the carried histories
+                ngs["nco"], z = nco.mix_block_planar(gs["nco"], x, fs)
+                ngs["cascade"], zs[gk] = halfband.cascade_apply_planar(
+                    gs["cascade"], z, self._hb1
+                )
             else:
                 if g.index in merged:
                     zs[gk] = merged[g.index]
@@ -550,7 +550,7 @@ class CompiledReceiver:
         fs_b = b.mix_fs(g.out_rate)
         zr, zi = z
         nbs: dict[str, Any] = {}
-        if b.stages >= 1:
+        if bk in self._bucket_mc:
             w = warmup_len(b.stages)
             ptr, pti = self._prev_group_tail(state, g, w)
             yr, yi = self._run(
@@ -574,7 +574,9 @@ class CompiledReceiver:
             )
         else:
             nbs["nco"], y = nco.mix_block_planar(bs["nco"], (zr[0], zi[0]), fs_b)
-            nbs["cascade"] = []
+            nbs["cascade"], y = halfband.cascade_apply_planar(
+                bs["cascade"], y, self._c[f"{bk}/hb"]
+            )
         for ci, s in enumerate(b.subs):
             # the decimated pre-demod baseband, where the reference's
             # per-VFO scope taps it (vfo.cpp:290-295, before the late stage)

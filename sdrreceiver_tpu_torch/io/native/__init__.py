@@ -1,0 +1,10 @@
+"""Native (C++) ingest runtime loaded via ctypes: the reference's 20-slot
+drop-on-full block ring and u8 LUT (jonti/sdr.cpp:100-184).
+
+``ringbuffer.cpp`` is a byte-for-byte copy of the JAX package's source;
+``loader`` builds it with g++ at first use into ``build/``.
+"""
+
+from .loader import IngestRing, available, load_library, u8_to_f32
+
+__all__ = ["IngestRing", "available", "load_library", "u8_to_f32"]

@@ -226,16 +226,116 @@ def test_layout_warmup_equals_pick_warmup(fs, stages, data_len, base):
     )
 
 
-@pytest.mark.parametrize(
-    "make,kwargs,match",
-    [(lambda: build_plan(benchmark_config()), {"block_samples": 1024}, "warm-up")],
-    ids=["short_block"],
-)
-def test_unported_plans_raise(make, kwargs, match):
-    """The one refusal left: a block shorter than the stateless kernels'
-    warm-up (the JAX package runs its jnp cascade there)."""
-    with pytest.raises(NotImplementedError, match=match):
-        CompiledReceiver(make(), **kwargs)
+# ------------------------------------------------------ short blocks
+# A block shorter than the stateless kernels' warm-up carries no xtail, in
+# both packages: every group and bucket runs the stateful mix + cascade.
+SHORT = {
+    "flagship_1024": (benchmark_config, graft._benchmark_config, 1024),
+    "flagship_2048": (benchmark_config, graft._benchmark_config, 2048),
+    "altrate_1280": (altrate_config, graft._altrate_config, 1280),
+}
+N_SHORT = 6
+
+
+def _short_raw(plan, block: int, n: int, seed: int = 0) -> np.ndarray:
+    """``[n, 2*block]`` u8: a tone in every sub-VFO, noise, a DC offset."""
+    subs = sorted((s for g in plan.groups for b in g.buckets for s in b.subs),
+                  key=lambda s: s.config_index)
+    iq = synthesize_channels(
+        n * block, plan.fs, plan.center_frequency,
+        [(s.frequency, 500 + 37 * i, 1.0) for i, s in enumerate(subs)],
+        noise=0.5, dc_offset=2 - 1j, seed=seed,
+    )
+    return to_u8(iq).reshape(n, 2 * block)
+
+
+def _steps(rx, raw, state=None, jax_rx=False):
+    """(per-block split outputs as numpy, exported state after each)."""
+    s = rx.init_state() if state is None else state
+    outs, states = [], []
+    for blk in raw:
+        s, o = rx.step_u8(s, jnp.asarray(blk) if jax_rx else torch.from_numpy(blk))
+        outs.append(rx.split_audio({k: np.asarray(v) for k, v in o.items()}))
+        states.append(rx.export_state(s))
+    return outs, states
+
+
+@pytest.fixture(scope="module")
+def short_runs():
+    runs = {}
+    for name, (cfg, jcfg, block) in SHORT.items():
+        plan, jplan = build_plan(cfg()), jbuild_plan(jcfg())
+        raw = _short_raw(plan, block, N_SHORT)
+        rx = CompiledReceiver(plan, block)
+        jrx = JaxReceiver(jplan, block)
+        jpal = JaxReceiver(jplan, block, use_pallas=True, pallas_interpret=True)
+        runs[name] = {"plan": plan, "raw": raw, "rx": rx, "jrx": jrx,
+                      "port": _steps(rx, raw), "jnp": _steps(jrx, raw, jax_rx=True),
+                      "pallas": _steps(jpal, raw, jax_rx=True)}
+    return runs
+
+
+@pytest.mark.parametrize("ref", ["pallas", "jnp"])
+@pytest.mark.parametrize("name", sorted(SHORT))
+def test_short_block_matches_jax(short_runs, name, ref):
+    """The port builds and runs at these blocks (no xtail, no mix-cascade
+    site, the DC kernel still on the path) within 1 LSB of the JAX receiver
+    in both its configurations, over several blocks."""
+    r = short_runs[name]
+    assert r["rx"].xtail_len() == r["jrx"].xtail_len() == 0
+    assert r["rx"].mix_cascades() == {}
+    assert "xtail" not in r["port"][1][0]
+    _assert_audio_close(r["port"][0], r[ref][0])
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+@pytest.mark.parametrize("name", ["flagship_2048", "altrate_1280"])
+def test_short_block_checkpoint_crosses(short_runs, name, first):
+    """Blocks 1-3 in one package, exported; blocks 4-6 in the other from
+    that state: the first package's straight run, within 1 LSB."""
+    r = short_runs[name]
+    a, b = ("jnp", r["rx"]) if first == "jax" else ("port", r["jrx"])
+    named = r[a][1][2]
+    outs, _ = _steps(b, r["raw"][3:], b.import_state(named), jax_rx=first == "port")
+    _assert_audio_close(outs, r[a][0][3:])
+
+
+def test_short_blocks_match_one_long_block():
+    """The flagship at block 2048 over 32 blocks against one step of a
+    65,536-sample receiver (the stateless kernel path) over the same
+    samples: the same audio within 1 LSB."""
+    plan = build_plan(benchmark_config())
+    raw = _short_raw(plan, 65536, 1, seed=3)
+    short, long_ = CompiledReceiver(plan, 2048), CompiledReceiver(plan, 65536)
+    assert long_.xtail_len() and long_.mix_cascades() and not short.mix_cascades()
+    outs, _ = _steps(short, raw.reshape(32, 4096))
+    joined = [{k: np.concatenate([o[k] for o in outs]) for k in outs[0]}]
+    _assert_audio_close(joined, _steps(long_, raw)[0])
+
+
+@pytest.mark.parametrize("entry", ["u8", "f32"])
+@pytest.mark.parametrize("t_len", [4224, 72000])
+def test_dc_plain_at_ragged_block_matches_jax(rng, entry, t_len):
+    """K1's plain version at a T that is no multiple of 256 (the JAX
+    package runs its jnp DC there) against that jnp DC, over two blocks."""
+    from sdrreceiver_tpu.kernels import dc as jdc
+    from sdrreceiver_tpu.kernels import ingest as jingest
+    from sdrreceiver_tpu_torch.cuda.dckernel import dc_ingest_plain
+
+    mean = torch.tensor([3.25, -1.5])
+    jmean = jnp.asarray(mean.numpy())
+    for _ in range(2):
+        raw = rng.integers(0, 256, 2 * t_len).astype(np.uint8)
+        if entry == "f32":
+            raw = raw.astype(np.float32) - 127.0
+            jx = (jnp.asarray(raw[0::2]), jnp.asarray(raw[1::2]))
+        else:
+            jx = jingest.u8_iq_to_planar(jnp.asarray(raw))
+        mean, (yr, yi) = dc_ingest_plain(mean, torch.from_numpy(raw))
+        jmean, (jyr, jyi) = jdc.dc_block_planar(jmean, jx)
+        np.testing.assert_allclose(mean.numpy(), np.asarray(jmean), rtol=1e-5, atol=1e-6)
+        for a, b in ((yr, jyr), (yi, jyi)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-3)
 
 
 def test_cuda_receiver_without_card_raises():
@@ -253,7 +353,7 @@ def test_port_never_imports_jax():
         "import sdrreceiver_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 34, mods\n"
+        "assert len(mods) >= 39, mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrreceiver_tpu.'))]\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
