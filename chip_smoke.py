@@ -8,7 +8,11 @@ its result and failing the script (non-zero exit) if it fails:
 
   1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions
   2. build: nvcc builds every kernel from ``csrc/``; the ptxas report
-  3. each kernel against its plain PyTorch version at the flagship shapes
+  3. each kernel against its plain PyTorch version at the flagship shapes;
+     each kernel's device time (``torch.profiler``, 50 calls) at the
+     flagship, live (384,000), alt-rate (f32 480,000) and ragged shapes,
+     beside its bound and its share of the bound; one ``dc_`` kernel and one
+     ``mix_cascade`` kernel per call
   4. the flagship receiver end to end (4 blocks of 1.536 Msamples of u8
      IQ): kernel path vs plain path, tones found in the audio, and the
      kernels' launch counts in the main path's run
@@ -786,7 +790,7 @@ def phase_rtl_tcp(dev, card: str, reps: int) -> dict:
             fail(f"mix_cascade {name} at the live block disagrees with its plain version")
         mc_err, mc_ms, mc_plain_ms = max(mc_err, e), mc_ms + k, mc_plain_ms + p
     return {"launches": launches, "dc_err": err, "dc_ms": dc_ms, "dc_plain_ms": dc_plain_ms,
-            "mc_err": mc_err, "mc_ms": mc_ms, "mc_plain_ms": mc_plain_ms}
+            "mc_err": mc_err, "mc_ms": mc_ms, "mc_plain_ms": mc_plain_ms, "sites": sorted(sites)}
 
 
 def phase_scope(dev, card: str, reps: int) -> None:
@@ -931,6 +935,45 @@ def phase_bench(card: str) -> dict:
     return out
 
 
+def phase_device_time(card: str) -> dict[str, dict]:
+    """3 (end). Device time of each kernel per call (torch.profiler), its
+    bound and share of the bound, at the flagship, live, alt-rate and ragged
+    shapes; fails unless every call ran one kernel of its own (and, for
+    dc_ingest, one memset)."""
+    from sdrreceiver_tpu_torch.cuda import devtime
+
+    out = {}
+    for c in devtime.measure(calls=50, step=False):
+        rows = c["rows_per_call"]
+        own = sum(n for k, n in rows.items() if ("dc_" if c["kernel"] == "dc_ingest"
+                                                   else "mix_cascade") in k)
+        print(f"device time {c['kernel']} {c['case']}: {c['device_us']:.2f} us per call "
+              f"({own:g} kernel, {sum(rows.values()):g} device ops), bound {c['bound_us']:.2f} us "
+              f"({c['bound_by']}), share of bound {c['bound_us'] / c['device_us']:.3f} {card}")
+        if own != 1 or sum(rows.values()) > 2:
+            fail(f"{c['kernel']} {c['case']}: {rows} device ops per call")
+        out[f"{c['kernel']} {c['case']}"] = c
+    return out
+
+
+def timing_keys(devt: dict, keys: list[str]) -> dict:
+    """The kernels-line keys that come from the device-time cases ``keys``
+    (summed; the bound of several mix-cascade calls from their summed bytes
+    and operations)."""
+    from sdrreceiver_tpu_torch.cuda import devtime
+
+    cases = [devt[k] for k in keys]
+    if len(cases) == 1:
+        bound, by = cases[0]["bound_us"], cases[0]["bound_by"]
+    else:
+        bound, by = devtime.joint_bound(cases)
+    us = sum(c["device_us"] for c in cases)
+    # no single PyTorch call computes either function (a recursive one-pole
+    # filter; an NCO mix followed by a strided composite FIR)
+    return {"device_us": us, "bound_us": bound, "bound_ms": bound / 1e3, "bound_by": by,
+            "library_ms": None}
+
+
 def phase_alt_timing(dev, card: str, alt: dict, iqr: dict, reps: int) -> dict:
     """9. Alt-rate step and kernels on the card; overlap-save vs direct."""
     from sdrreceiver_tpu_torch.cuda.dckernel import DcIngest
@@ -1067,6 +1110,9 @@ def main() -> None:
               f"mean rel_err={mrel:.3e} (limit 1e-4)")
         if not err <= 1e-3 or not mrel <= 1e-4:
             fail(f"dc_ingest {name} disagrees with its plain version")
+        m_k2, (yr_k2, yi_k2) = dck(mean, raw)
+        if not (torch.equal(m_k, m_k2) and torch.equal(yr_k, yr_k2) and torch.equal(yi_k, yi_k2)):
+            fail(f"dc_ingest {name}: two calls on the same input differ")
 
     sites = rx.mix_cascades()
     if len(sites) != 4:
@@ -1092,6 +1138,7 @@ def main() -> None:
             mc_err = max(mc_err, err)
             mc_inputs.append((name, mc, ph, xr, xi))
     torch.cuda.synchronize()
+    devt = phase_device_time(card)
 
     # ---- 4. flagship end to end ----
     subs = sorted(
@@ -1207,45 +1254,55 @@ def main() -> None:
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
          "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
          "launches": dc_launches, "max_abs_err": dc_err,
-         "ms": dc_ms, "plain_ms": dc_plain_ms},
+         "ms": dc_ms, "plain_ms": dc_plain_ms,
+         **timing_keys(devt, ["dc_ingest u8 T=1536000"])},
         {"name": "mix_cascade", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
          "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
          "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
          "launches": sum(mc_launches), "max_abs_err": mc_err,
-         "ms": mc_ms, "plain_ms": mc_plain_ms},
+         "ms": mc_ms, "plain_ms": mc_plain_ms,
+         **timing_keys(devt, [f"mix_cascade flagship block {BLOCK} {k}" for k in sites])},
         {"name": "dc_ingest (alt-rate f32 entry, T=480000)", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
          "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
          "launches": alt["rx_launches"]["dc_ingest"], "max_abs_err": at["dc_err"],
-         "ms": at["dc_ms"], "plain_ms": at["dc_plain_ms"]},
+         "ms": at["dc_ms"], "plain_ms": at["dc_plain_ms"],
+         **timing_keys(devt, [f"dc_ingest f32 T={ALT_BLOCK}"])},
         {"name": "mix_cascade (alt-rate: front C=2 d=[3,3], g0/b0 C=3 d=2)", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
          "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
          "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
          "launches": alt_mc, "max_abs_err": at["mc_err"],
-         "ms": at["mc_ms"], "plain_ms": at["mc_plain_ms"]},
+         "ms": at["mc_ms"], "plain_ms": at["mc_plain_ms"],
+         **timing_keys(devt, [f"mix_cascade altrate block {ALT_BLOCK} {k}"
+                              for k in alt["sites"]])},
         {"name": "dc_ingest (partial last tile, u8 T=4224: flagship --block 4224)",
          "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
          "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
          "launches": blk["b4224_launches"], "max_abs_err": blk["err"],
-         "ms": blk[(4224, "u8")][0], "plain_ms": blk[(4224, "u8")][1]},
+         "ms": blk[(4224, "u8")][0], "plain_ms": blk[(4224, "u8")][1],
+         **timing_keys(devt, ["dc_ingest u8 T=4224"])},
         {"name": "dc_ingest (partial last tile, u8 T=72000: 288k plan with DC)",
          "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
          "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
          "launches": blk["r288_launches"], "max_abs_err": blk["err"],
-         "ms": blk[(72_000, "u8")][0], "plain_ms": blk[(72_000, "u8")][1]},
+         "ms": blk[(72_000, "u8")][0], "plain_ms": blk[(72_000, "u8")][1],
+         **timing_keys(devt, ["dc_ingest u8 T=72000"])},
         {"name": "dc_ingest (live run over rtl_tcp, u8 T=384000)", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
          "replaces": "sdrreceiver_tpu/pallas/dckernel.py:176",
          "launches": live["launches"]["dc_ingest"], "max_abs_err": live["dc_err"],
-         "ms": live["dc_ms"], "plain_ms": live["dc_plain_ms"]},
+         "ms": live["dc_ms"], "plain_ms": live["dc_plain_ms"],
+         **timing_keys(devt, [f"dc_ingest u8 T={LIVE_BLOCK}"])},
         {"name": "mix_cascade (live run over rtl_tcp, block 384000, 4 sites)", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
          "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
          "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
          "launches": live_mc, "max_abs_err": live["mc_err"],
-         "ms": live["mc_ms"], "plain_ms": live["mc_plain_ms"]},
+         "ms": live["mc_ms"], "plain_ms": live["mc_plain_ms"],
+         **timing_keys(devt, [f"mix_cascade flagship block {LIVE_BLOCK} {k}"
+                              for k in live["sites"]])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

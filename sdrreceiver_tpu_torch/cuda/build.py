@@ -39,7 +39,8 @@ _P, _I, _LL, _D, _F = (
 _SIGNATURES = {
     "dc_ingest_launch": (_P, _I, _LL, _P, _P, _P, _P, _P, _P, _D, _P),
     "mix_cascade_launch": (
-        _P, _P, _LL, _LL, _P, _P, _P, _LL, _F, _P, _I, _P, _P, _I, _I, _P,
+        _P, _P, _LL, _LL, _P, _P, _P, _LL, _F, _P, _P, _I, _P, _P, _I, _P,
+        _P, _I, _I, _P,
     ),
 }
 

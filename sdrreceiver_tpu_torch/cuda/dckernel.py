@@ -2,19 +2,35 @@
 
 Counterpart of ``sdrreceiver_tpu/pallas/dckernel.py`` (both of its
 instances: the u8 entry with ``v - 127`` fused into the load, and the f32
-entry).  The kernel reads the interleaved stream directly.  Its plain
-version is :func:`dc_ingest_plain`: ``kernels.ingest`` then the closed-form
-``kernels.dc.dc_block_planar``.
+entry).  The kernel reads the interleaved stream directly, once, in one
+launch (a chained scan with decoupled look-back over tiles of
+:data:`TILE` samples).  Its plain version is :func:`dc_ingest_plain`:
+``kernels.ingest`` then the closed-form ``kernels.dc.dc_block_planar``.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ..kernels import dc, ingest
 from . import build
 
-__all__ = ["DcIngest", "dc_ingest_plain"]
+__all__ = ["DcIngest", "dc_ingest_plain", "decay_table", "TILE", "LOOK"]
+
+TILE = 4096  # samples per kernel tile (dc_ingest.cu kTile); the last may be partial
+LOOK = 128  # predecessors a tile sums (dc_ingest.cu kLook)
+
+
+@functools.cache
+def decay_table(alpha: float) -> np.ndarray:
+    """The kernel's decay powers as float32, each ``exp(n log1p(-alpha))``
+    in float64 rounded once (``kernels.dc.decay_pow``): ``a^n`` for ``n =
+    0..TILE``, then ``a^(TILE j)`` for ``j = 0..LOOK``."""
+    n = np.concatenate([np.arange(TILE + 1), TILE * np.arange(LOOK + 1)])
+    return dc.decay_pow(alpha, n).astype(np.float32)
 
 
 def dc_ingest_plain(
@@ -38,6 +54,7 @@ class DcIngest(torch.nn.Module):
 
     def __init__(self):
         super().__init__()
+        self._pw: dict[torch.device, torch.Tensor] = {}  # decay_table per device
         self.launches = 0
 
     def plain(self, mean: torch.Tensor, raw: torch.Tensor):
@@ -66,15 +83,19 @@ class DcIngest(torch.nn.Module):
         yr = torch.empty(t_len, dtype=torch.float32, device=dev)
         yi = torch.empty(t_len, dtype=torch.float32, device=dev)
         new_mean = torch.empty(2, dtype=torch.float32, device=dev)
-        # one (re, im) pair per tile of at least 256 samples
-        scratch = torch.empty(2, -(-t_len // 256), 2, dtype=torch.float32, device=dev)
+        # the ticket, then per tile two published (re, im) word pairs;
+        # cleared on the stream by the launch entry
+        scratch = torch.empty(1 + 4 * -(-t_len // TILE), dtype=torch.int64, device=dev)
+        pw = self._pw.get(dev)
+        if pw is None:
+            pw = self._pw[dev] = torch.tensor(decay_table(dc.DEFAULT_ALPHA), device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = build.library().dc_ingest_launch(
                 raw.data_ptr(), int(raw.dtype == torch.uint8), t_len,
                 mean.data_ptr(), new_mean.data_ptr(), yr.data_ptr(),
-                yi.data_ptr(), scratch[0].data_ptr(), scratch[1].data_ptr(),
-                dc.DEFAULT_ALPHA, stream,
+                yi.data_ptr(), scratch.data_ptr(), pw.data_ptr(), dc.DEFAULT_ALPHA,
+                stream,
             )
         build.check(err, "dc_ingest_launch")
         self.launches += 1

@@ -18,6 +18,7 @@ outputs, and this port uses ``warmup_len`` itself.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -30,12 +31,18 @@ __all__ = [
     "composite_taps",
     "warmup_len",
     "phase_back",
+    "phasor_tables",
+    "lane_factors",
+    "lane_table",
+    "phasor_plain",
     "mix_cascade_plain",
     "MixCascade",
 ]
 
 LANES = 256  # warm-up granule (the JAX package's row width)
 MAX_DEPTH = 7
+PHASOR_BITS = 11  # K: Tlo has 2^K entries, Thi ceil(fs / 2^K)
+FS_LIMIT = 1 << 22  # m * f32(2 pi / fs) is exact in double below it
 
 
 def composite_taps(stages: int, taps=None) -> np.ndarray:
@@ -73,6 +80,72 @@ def phase_back(
     return (phase + fs - f_mod * n_back % fs) % fs
 
 
+def _angle_step(fs: int) -> float:
+    """F = f32(2 pi / fs), the NCO's angle per unit of phase numerator."""
+    return float(np.float32(2.0 * np.pi / fs))
+
+
+@functools.cache
+def phasor_tables(fs: int) -> tuple[np.ndarray, np.ndarray]:
+    """``(Thi, Tlo)``, float64 ``(re, im)`` pairs: ``Thi[i] = exp(j F i
+    2^K)`` for ``i < ceil(fs / 2^K)``, ``Tlo[i] = exp(j F i)`` for ``i <
+    2^K``, with ``F = f32(2 pi / fs)`` and ``K =`` :data:`PHASOR_BITS`.
+    Every argument ``F i 2^K`` and ``F i`` is exact in double."""
+    if not 0 < fs < FS_LIMIT:
+        raise ValueError(f"sample rate {fs} outside (0, {FS_LIMIT})")
+    f = _angle_step(fs)
+    hi = f * np.arange(-(-fs // (1 << PHASOR_BITS)), dtype=np.float64) * (1 << PHASOR_BITS)
+    lo = f * np.arange(1 << PHASOR_BITS, dtype=np.float64)
+    return tuple(np.stack([np.cos(a), np.sin(a)], axis=-1) for a in (hi, lo))
+
+
+def lane_factors(d, fs: int) -> np.ndarray:
+    """``exp(j F d)`` and ``exp(j F (d - fs))``, float64 ``[..., 2, 2]``
+    (unwrapped, wrapped; ``(re, im)``) for integer ``d`` in ``[0, fs)``:
+    both arguments are exact in double."""
+    f = _angle_step(fs)
+    d = np.asarray(d, np.int64)
+    ang = f * np.stack([d, d - fs], axis=-1).astype(np.float64)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1)
+
+
+def lane_table(f_mod, fs: int) -> np.ndarray:
+    """:func:`lane_factors` of each channel's lane offsets ``d = f * lane
+    mod fs``, lane 0..31 of a warp: float64 ``[C, 32, 2, 2]``."""
+    return lane_factors(np.asarray(f_mod, np.int64)[:, None] * np.arange(32) % fs, fs)
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def phasor_plain(
+    mw: torch.Tensor,
+    d: torch.Tensor,
+    lane: torch.Tensor,
+    fs: int,
+    tables: tuple[torch.Tensor, torch.Tensor],
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``exp(j theta)`` as float64 ``(cos, sin)`` for the phase numerator
+    ``m = (mw + d) mod fs`` (int64 ``mw``, ``d`` in ``[0, fs)``), ``theta =
+    f32(m) * f32(2 pi / fs)`` as in kernels/nco, the kernel's way, operation
+    for operation: ``theta_d = m F`` is exact in double, ``theta_f =
+    f32(theta_d)``, ``r = theta_f - theta_d`` exact and ``|r| <= 2^-22``, and
+    ``exp(j theta_f) = (Thi[mw >> K] Tlo[mw mod 2^K]) lane ((1 - r r / 2) +
+    j r)``.  ``tables`` is :func:`phasor_tables` on the device; ``lane`` the
+    :func:`lane_factors` entry ``[..., 2]`` of ``d``, wrapped where ``mw + d
+    >= fs``."""
+    thi, tlo = tables
+    f = _angle_step(fs)
+    th_w, th_d = mw.double() * f, d.double() * f
+    theta_d = torch.where(mw + d >= fs, th_w + th_d - fs * f, th_w + th_d)
+    r = theta_d.float().double() - theta_d
+    h, lo = thi[mw >> PHASOR_BITS], tlo[mw & ((1 << PHASOR_BITS) - 1)]
+    u = _cmul(h[..., 0], h[..., 1], lo[..., 0], lo[..., 1])
+    pm = _cmul(*u, lane[..., 0], lane[..., 1])
+    return _cmul(*pm, 1.0 - r * r * 0.5, r)
+
+
 def mix_cascade_plain(
     phase: torch.Tensor,
     xr: torch.Tensor,
@@ -85,23 +158,36 @@ def mix_cascade_plain(
     strided conv with :func:`composite_taps` per depth.
 
     ``phase``, ``f_mod`` int64 ``[C]``; ``xr``, ``xi`` f32 ``[1, T]``
-    (shared) or ``[C, T]``.  Returns flat channel-major ``(yr, yi)``, channel
-    c's ``T >> depths[c]`` outputs after those of the channels before it.
+    (shared) or ``[C, T]``.  Returns flat channel-major ``(yr, yi)``,
+    channel c's ``T >> depths[c]`` outputs after those of the channels
+    before it.
 
     Rounding points, shared with the kernel: theta in float32 exactly as
-    kernels/nco (the JAX package's phase semantics); cos, sin and the mix in
-    float64, rounded once to float32; the FIR sums the exact float64
-    products of float32 taps and mixed samples and rounds once.  Both sides
-    are then correctly rounded to within ~1e-16, so they agree bit for bit
-    whatever their summation order, save for rare rounding ties.  With
-    float32 sums in two orders, ~1% of int16 audio samples at rms ~10^4
-    would differ by one LSB between kernel and plain version."""
+    kernels/nco (the JAX package's phase semantics); its phasor by
+    :func:`phasor_plain`, decomposed as the kernel's warps see it (lane =
+    ``(n + halo) mod 32`` of sample n, ``halo`` the kernel's input halo of
+    ``10 (2^max(depths) - 1)`` samples), and the mix in float64, one
+    rounding per operation, the mix then rounded once to float32; the FIR
+    sums the exact float64 products of float32 taps and mixed samples and
+    rounds once.  Both sides are then correctly
+    rounded to within ~1e-16, so they agree bit for bit whatever their
+    summation order, save for rare rounding ties.  With float32 sums in two
+    orders, ~1% of int16 audio samples at rms ~10^4 would differ by one LSB
+    between kernel and plain version."""
     dev = xr.device
-    theta = nco.theta_planar(phase, f_mod, fs, xr.shape[-1]).double()
-    cos, sin = torch.cos(theta), torch.sin(theta)
+    thi, tlo = (torch.as_tensor(t, device=dev) for t in phasor_tables(fs))
+    lanes = torch.as_tensor(lane_table(f_mod.cpu().numpy(), fs), device=dev)
+    halo = 10 * ((1 << max(depths)) - 1)
+    n = torch.arange(xr.shape[-1], dtype=torch.int64, device=dev)
+    lane = (n + halo) % 32
+    mw = (phase[:, None] + f_mod[:, None] * (n - lane) % fs) % fs
+    d = f_mod[:, None] * lane % fs
+    # lanes[c, lane, wrap] as [C, T, 2]
+    sel = (lane * 2 + (mw + d >= fs)).reshape(len(depths), -1, 1).expand(-1, -1, 2)
+    lf = torch.gather(lanes.reshape(len(depths), 64, 2), 1, sel)
+    cos, sin = phasor_plain(mw, d, lf, fs, (thi, tlo))
     xr, xi = xr.double(), xi.double()
-    zr = (xr * cos - xi * sin).float().double()
-    zi = (xr * sin + xi * cos).float().double()
+    zr, zi = (v.float().double() for v in _cmul(xr, xi, cos, sin))
     ys: list = [None] * len(depths)
     for d in sorted(set(depths)):
         idx = [c for c, dc in enumerate(depths) if dc == d]
@@ -155,7 +241,12 @@ class MixCascade(torch.nn.Module):
         self.register_buffer(
             "depth", torch.tensor(self.depths, dtype=torch.int32, device=device)
         )
-        self.register_buffer("taps", torch.tensor(taps, device=device))
+        # float64 (exact float32 values): the kernel converts none per tap
+        self.register_buffer("taps", torch.tensor(taps, dtype=torch.float64, device=device))
+        thi, tlo = phasor_tables(self.fs)
+        self.register_buffer("thi", torch.tensor(thi, device=device))
+        self.register_buffer("tlo", torch.tensor(tlo, device=device))
+        self.register_buffer("lanes", torch.tensor(lane_table(f, self.fs), device=device))
         self.launches = 0
 
     @property
@@ -206,7 +297,8 @@ class MixCascade(torch.nn.Module):
                 xr.data_ptr(), xi.data_ptr(), 0 if xr.shape[0] == 1 else t_len,
                 t_len, phase.data_ptr(), self.f_mod.data_ptr(),
                 self.depth.data_ptr(), self.fs,
-                float(np.float32(2.0 * np.pi / self.fs)), self.taps.data_ptr(),
+                _angle_step(self.fs), self.thi.data_ptr(),
+                self.tlo.data_ptr(), PHASOR_BITS, self.lanes.data_ptr(), self.taps.data_ptr(),
                 self.taps.shape[1], yr.data_ptr(), yi.data_ptr(), c, self.dmax,
                 stream,
             )

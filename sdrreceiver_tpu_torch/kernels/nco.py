@@ -23,6 +23,7 @@ __all__ = [
     "block_step_mod",
     "advance_per_block",
     "phase_minus",
+    "phase_planar",
     "theta_planar",
     "phasor_planar",
     "mix_block_planar",
@@ -67,13 +68,21 @@ def phase_minus(state: dict, fs: int, n: int) -> torch.Tensor:
     return (state["phase"] + fs - block_step_mod(state, fs, n)) % fs
 
 
+def phase_planar(
+    phase: torch.Tensor, f: torch.Tensor, fs: int, t_len: int
+) -> torch.Tensor:
+    """The exact per-channel phase numerators ``(phase + f*n mod fs) mod
+    fs``, ``[C, T]`` int64."""
+    n = torch.arange(t_len, dtype=torch.int64, device=phase.device)
+    return (phase[:, None] + f[:, None] * n % fs) % fs
+
+
 def theta_planar(
     phase: torch.Tensor, f: torch.Tensor, fs: int, t_len: int
 ) -> torch.Tensor:
     """The exact per-channel phase ramp as angles, ``[C, T]`` f32:
     ``theta = f32((phase + f*n mod fs) mod fs) * f32(2 pi / fs)``."""
-    n = torch.arange(t_len, dtype=torch.int64, device=phase.device)
-    m = (phase[:, None] + f[:, None] * n % fs) % fs
+    m = phase_planar(phase, f, fs, t_len)
     return m.to(torch.float32) * float(np.float32(2.0 * np.pi / fs))
 
 
