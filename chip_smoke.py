@@ -48,9 +48,24 @@ its result and failing the script (non-zero exit) if it fails:
      1 kHz audio, sets the bias tee and closes the device
  14. ``bench`` on the flagship, kernel path and ``--plain`` in turns, at
      blocks 384,000 and 1,536,000
+ 15. the sharded receiver (``dist/``): the flagship on 4x1, 2x2 and 1x4
+     meshes of four shards of one card (and of four cards where there
+     are), at blocks 1,536,000 and 384,000, and the IQ plan on 2x2, 3 blocks
+     each against one device (audio, IQ bytes, taps, exported state); the
+     per-shard mix-cascade launches; each per-shard site against its plain
+     version; the sharded step beside the one-device step
+ 16. the 66-channel, 3-group plan (tests/test_dist.py, BASELINE config 5)
+     at its block of 384,000 on a 2x4 mesh against one device
+ 17. ``process-file --mesh 2x1`` on the alt-rate recording against phase 6
+ 18. two ``process-file`` processes on the card joined on gloo: the
+     groups partition (union bit-equal to one process, no topic twice),
+     ``--partition global --mesh 2x1`` (each process writes its own topics,
+     union within 1 LSB); three processes for two groups (one exits 1)
 
 The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.
+``{"ok": true, "device": {...}}``.  ``--mesh-only`` runs phases 1, 2 and 15
+alone (for a machine with four cards, where phase 15 adds meshes over four
+distinct cards).
 """
 
 from __future__ import annotations
@@ -1057,6 +1072,289 @@ def phase_alt_timing(dev, card: str, alt: dict, iqr: dict, reps: int) -> dict:
     return out
 
 
+def cband_ini(n_subs: int = 66) -> str:
+    """tests/test_dist.py's ``_cband_scale_ini`` (BASELINE config 5): a
+    CBAND-style wideband plan, 3 main groups, ``n_subs`` sub-VFOs."""
+    centers = (1545116000, 1546096000, 1546796000)
+    rates = (384000, 192000, 192000)
+    lines = ["sample_rate=1536000", "center_frequency=1545900000",
+             "zmq_address=tcp://*:6003", "correct_dc_bias=1", "[main_vfos]",
+             f"size={len(centers)}"]
+    for i, (f, r) in enumerate(zip(centers, rates), 1):
+        lines += [f"{i}\\frequency={f}", f"{i}\\out_rate={r}"]
+    lines += ["[vfos]", f"size={n_subs}"]
+    for i in range(1, n_subs + 1):
+        g = (i - 1) % 3
+        lines += [f"{i}\\frequency={centers[g] - rates[g] // 3 + (i // 3) * 9000}",
+                  f"{i}\\gain=5", f"{i}\\data_rate={(600, 1200, 10500)[g]}",
+                  f"{i}\\topic=CH{i:03d}"]
+        if i % 5 == 0:
+            lines.append(f"{i}\\filter_bandwidth=4000")
+    return "\n".join(lines)
+
+
+def plan_stream(plan, n_blocks: int, block: int, seed: int) -> np.ndarray:
+    """u8 ``[n_blocks, 2*block]``: tones at amplitude 4 in every third
+    topic, noise 1.0, as ``flagship_stream`` for any plan."""
+    from sdrreceiver_tpu_torch.io.iqfile import synthesize_channels, to_u8
+
+    subs = sorted((s for g in plan.groups for b in g.buckets for s in b.subs),
+                  key=lambda s: s.config_index)
+    iq = synthesize_channels(
+        n_blocks * block, plan.fs, plan.center_frequency,
+        [(s.frequency, 500 + 37 * i, 4.0) for i, s in enumerate(subs) if i % 3 == 0],
+        noise=1.0, seed=seed,
+    )
+    return to_u8(iq).reshape(n_blocks, 2 * block)
+
+
+def run_steps(rx, blocks) -> tuple[list[dict], dict]:
+    """(per-block outputs on the host after ``split_audio``, the exported
+    final state) of ``rx`` stepped over u8 ``blocks``."""
+    st, out = rx.init_state(), []
+    for b in blocks:
+        st, o = rx.step_u8(st, b)
+        out.append({k: v.cpu().numpy() for k, v in rx.split_audio(o).items()})
+    return out, rx.export_state(st)
+
+
+def outputs_diff(ours: list[dict], ref: list[dict], what: str) -> dict:
+    """Every output of a run against a reference run: audio as
+    ``audio_diff``; ``iq/`` bytes under 1e-3 differing by at most one nibble
+    step; taps within 1e-4 of their peak.  Fails the script otherwise."""
+    def pick(outs, pre):
+        return {f"{i}/{k}": v for i, o in enumerate(outs) for k, v in o.items() if k.startswith(pre)}
+
+    lsb, flip = audio_diff(pick(ours, "audio/"), pick(ref, "audio/"), what)
+    iq_o, iq_r = pick(ours, "iq/"), pick(ref, "iq/")
+    share = 0.0
+    for k, b in iq_r.items():
+        a = iq_o[k]
+        step = max(int(np.abs(x - y).max()) for x, y in zip(nibbles(a), nibbles(b)))
+        share = max(share, float((a != b).mean()))
+        if a.shape != b.shape or share >= 1e-3 or step > 1:
+            fail(f"{what} {k}: {share:.2e} of bytes, {step} nibble steps")
+    tap_o, tap_r = pick(ours, "tap/"), pick(ref, "tap/")
+    tap = max((float(np.abs(tap_o[k] - b).max() / np.abs(b).max()) for k, b in tap_r.items()),
+              default=0.0)
+    if tap > 1e-4:
+        fail(f"{what}: taps differ by {tap:.2e} of their peak")
+    if iq_r or tap_r:
+        print(f"{what}: iq/ worst {share:.2e} of bytes differ (limit 1e-3, one nibble step); "
+              f"taps within {tap:.2e} of peak (limit 1e-4)")
+    return {"lsb": lsb, "flip": flip}
+
+
+def state_diff(ours: dict, ref: dict, what: str) -> float:
+    """Exported states: the same leaves, NCO integers equal, floats within
+    1e-3 (u8-scale DC means and tails)."""
+    if set(ours) != set(ref):
+        fail(f"{what}: state leaves differ")
+    worst = 0.0
+    for k, r in ref.items():
+        if ours[k].shape != r.shape or ours[k].dtype != r.dtype:
+            fail(f"{what}: state {k} {ours[k].dtype} {ours[k].shape} vs {r.dtype} {r.shape}")
+        if r.dtype == np.uint32:
+            if not np.array_equal(ours[k], r):
+                fail(f"{what}: state {k} differs")
+        else:
+            worst = max(worst, float(np.abs(ours[k].astype(np.complex128) - r).max()))
+    print(f"{what}: export_state max float diff {worst:.2e} (limit 1e-3), integers equal")
+    if worst > 1e-3:
+        fail(f"{what}: state differs")
+    return worst
+
+
+def phase_mesh(dev, card: str, reps: int) -> dict:
+    """15. The sharded receiver: the flagship on 4x1, 2x2 and 1x4 meshes
+    (four shards of one card, and four cards where there are) at blocks
+    1,536,000 and 384,000, and the IQ plan on 2x2, against one device."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    layouts = [("one card x4", [dev] * 4)]
+    if torch.cuda.device_count() >= 4:
+        layouts.append(("four cards", [torch.device("cuda", i) for i in range(4)]))
+    out = {"err": 0.0, "launches": 0, "ms": 0.0, "plain_ms": 0.0}
+    cases = [(build_plan(benchmark_config()), block, "flagship", ()) for block in (BLOCK, LIVE_BLOCK)]
+    cases.append((build_plan(parse_ini_text(IQ_INI)), IQ_BLOCK, "iq plan", ("main", "g0", "VFO01")))
+    for plan, block, name, taps in cases:
+        blocks = torch.tensor(plan_stream(plan, 3, block, seed=15), device=dev)
+        single = CompiledReceiver(plan, block, emit_taps=taps, device=dev)
+        ref, ref_state = run_steps(single, blocks)
+        shapes = ((2, 2),) if taps else ((4, 1), (2, 2), (1, 4))
+        for lname, devs in layouts:
+            for shape in shapes:
+                rx = ShardedReceiver(plan, make_mesh(*shape, devs), block, emit_taps=taps)
+                sites = rx.mix_cascades()
+                for mc, _ in sites.values():
+                    mc.launches = 0
+                got, state = run_steps(rx, blocks)
+                for d in set(devs):
+                    torch.cuda.synchronize(d)
+                launches = {k: mc.launches for k, (mc, _) in sites.items()}
+                what = f"{name} block {block} mesh {shape[0]}x{shape[1]} ({lname})"
+                print(f"{what}: per-shard mix_cascade launches over 3 steps {launches} "
+                      f"(expected {shape[0]} sites x 3, the merged front), chan ranges "
+                      f"{ {k: [(lo, hi) for lo, hi, _, _ in v] for k, v in rx._chan_parts.items()} }")
+                if len(sites) != shape[0] or any(n != 3 for n in launches.values()):
+                    fail(f"{what}: the per-shard kernels did not run once a step")
+                outputs_diff(got, ref, f"{what} vs one device")
+                state_diff(state, ref_state, what)
+                if lname == layouts[0][0] and shape == (4, 1) and block == BLOCK:
+                    out["launches"] = sum(launches.values())
+                    out["sites"] = sorted(sites)
+                    out["shard_t"] = sites["shard0/front"][1]
+                    for site, (mc, t_len) in sites.items():
+                        rng = np.random.default_rng(16)
+                        xr = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
+                        xi = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
+                        ph = torch.tensor(rng.integers(0, mc.fs, mc.channels), device=dev)
+                        (yr_k, yi_k), (yr_p, yi_p) = mc(ph, xr, xi), mc.plain(ph, xr, xi)
+                        err = max((yr_k - yr_p).abs().max().item(), (yi_k - yi_p).abs().max().item())
+                        p_ms, k_ms = in_turns(lambda: mc.plain(ph, xr, xi), lambda: mc(ph, xr, xi), reps)
+                        out["err"] = max(out["err"], err)
+                        out["ms"] += k_ms
+                        out["plain_ms"] += p_ms
+                        print(f"kernel mix_cascade {site} (flagship 4x1): C={mc.channels} "
+                              f"depths={mc.depths} T={t_len} max_abs_err={err:.3e} (limit 2e-3, "
+                              f"expected 0); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms {card}")
+                        if not err <= 2e-3:
+                            fail(f"per-shard mix_cascade {site} disagrees with its plain version")
+                if name == "flagship":
+                    st = {"s": rx.init_state(), "t": single.init_state(), "i": 0}
+
+                    def step(r, key):
+                        def go():
+                            st["i"] = (st["i"] + 1) % 3
+                            st[key], _ = r.step_u8(st[key], blocks[st["i"]])
+                        return go
+
+                    one_ms, mesh_ms = in_turns(step(single, "t"), step(rx, "s"), reps)
+                    out[(block, lname, shape)] = (mesh_ms, one_ms)
+                    print(f"time {what}: sharded step_u8 {mesh_ms:.3f} ms, one device "
+                          f"{one_ms:.3f} ms (x{mesh_ms / one_ms:.2f}) {card}")
+    return out
+
+
+def phase_cband(dev, card: str) -> None:
+    """16. The 66-channel, 3-group plan at its own block of 384,000 on a
+    2x4 mesh, against one device."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, local_devices, make_mesh
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    plan = build_plan(parse_ini_text(cband_ini(66)))
+    block = plan.block_samples
+    blocks = torch.tensor(plan_stream(plan, 3, block, seed=16), device=dev)
+    ref, ref_state = run_steps(CompiledReceiver(plan, block, device=dev), blocks)
+    devs = local_devices(8, DEVICE)
+    rx = ShardedReceiver(plan, make_mesh(2, 4, devs), block)
+    sites = rx.mix_cascades()
+    for mc, _ in sites.values():
+        mc.launches = 0
+    t0 = time.perf_counter()
+    got, state = run_steps(rx, blocks)
+    secs = time.perf_counter() - t0
+    launches = {k: mc.launches for k, (mc, _) in sites.items()}
+    what = (f"cband {plan.num_channels()} channels, {len(plan.groups)} groups, block {block}, "
+            f"mesh 2x4 over {sorted({str(d) for d in devs})}")
+    print(f"{what}: launches {launches} (expected 2 sites x 3); {len(rx._chan_parts)} buckets "
+          f"split over 4 channel ranges; 3 steps in {secs:.3f} s (with their host copies) {card}")
+    if len(sites) != 2 or any(n != 3 for n in launches.values()) or plan.num_channels() != 66:
+        fail("cband: the per-shard kernels did not run once a step")
+    outputs_diff(got, ref, f"{what} vs one device")
+    state_diff(state, ref_state, "cband 2x4")
+
+
+def phase_alt_mesh(alt: dict) -> dict:
+    """17. ``process-file --mesh 2x1`` on the alt-rate recording."""
+    d = WORK / "alt"
+    with receivers_built() as built:
+        summary = cli("process-file", "-s", d / "alt.ini", "--device", DEVICE, "--iq",
+                      d / "alt.u8", "--out", d / "m", "--mesh", "2x1")
+    (rx,) = built
+    launches = {k: mc.launches for k, (mc, _) in rx.mix_cascades().items()}
+    print(f"alt-rate process-file --mesh 2x1: block {rx.block}, {summary['blocks']} blocks, "
+          f"launches {launches} (expected 2 sites x {summary['blocks']}), realtime factor "
+          f"{summary['realtime_factor']}")
+    if len(launches) != 2 or any(n != summary["blocks"] for n in launches.values()):
+        fail("alt-rate --mesh 2x1: the per-shard kernels did not run once a block")
+    audio_diff(read_audio(d / "m"), read_audio(d / "k"), "alt-rate --mesh 2x1 vs one device")
+    return {"launches": launches, "summary": summary}
+
+
+def processes(argvs: list[list], timeout: float = 300.0) -> list[tuple[int, str, str]]:
+    """Run the port's CLI in one process per argv, all at once; (exit code,
+    stdout, stderr) of each."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    procs = [subprocess.Popen([sys.executable, "-m", "sdrreceiver_tpu_torch", *map(str, a)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                              env=env, cwd=str(REPO)) for a in argvs]
+    try:
+        res = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    return [(p.returncode, so, se) for p, (so, se) in zip(procs, res)]
+
+
+def phase_multihost(card: str) -> None:
+    """18. Two ``process-file`` processes on the one card, joined on gloo:
+    the groups partition, then ``--partition global --mesh 2x1``; then three
+    processes for two groups."""
+    d = WORK / "alt"
+    single = read_audio(d / "k")
+
+    def fleet(tag: str, n: int, *extra):
+        coord = f"127.0.0.1:{free_port()}"
+        t0 = time.perf_counter()
+        res = processes([["process-file", "-s", d / "alt.ini", "--iq", d / "alt.u8", "--out",
+                          d / f"{tag}{i}", "--device", DEVICE, "--coordinator", coord,
+                          "--num-processes", n, "--process-id", i, *extra] for i in range(n)])
+        return res, time.perf_counter() - t0
+
+    res, secs = fleet("mg", 2)
+    for rc, so, se in res:
+        if rc:
+            fail(f"groups partition: a process exited {rc}: {se[-2000:]}")
+    parts = [read_audio(d / f"mg{i}") for i in range(2)]
+    mh = [json.loads(so.strip().splitlines()[-1])["multihost"] for _, so, _ in res]
+    same = all(np.array_equal(v, single[k]) for p in parts for k, v in p.items())
+    print(f"groups partition, 2 processes on one card: groups {[m['local_groups'] for m in mh]}, "
+          f"topics {[sorted(p) for p in parts]}; union bit-equal to one process: {same} "
+          f"({secs:.1f} s for both, start-up included) {card}")
+    if set(parts[0]) & set(parts[1]) or set(parts[0]) | set(parts[1]) != set(single) or not same:
+        fail("groups partition: the union is not the single-process files")
+
+    res, secs = fleet("mw", 2, "--partition", "global", "--mesh", "2x1")
+    for rc, so, se in res:
+        if rc:
+            fail(f"global partition: a process exited {rc}: {se[-2000:]}")
+    parts = [read_audio(d / f"mw{i}") for i in range(2)]
+    mh = [json.loads(so.strip().splitlines()[-1])["multihost"] for _, so, _ in res]
+    print(f"global partition --mesh 2x1, 2 processes on one card: topics "
+          f"{[sorted(p) for p in parts]} ({secs:.1f} s for both, start-up included) {card}")
+    for p, m in zip(parts, mh):
+        if set(p) != set(m["local_topics"]):
+            fail(f"global partition: a process wrote {sorted(p)}, owns {m['local_topics']}")
+    if set(parts[0]) & set(parts[1]):
+        fail("global partition: a topic written twice")
+    audio_diff({**parts[0], **parts[1]}, single, "global partition union vs one process")
+
+    res, _ = fleet("m3", 3)
+    codes = sorted(rc for rc, _, _ in res)
+    refused = [se for rc, _, se in res if rc]
+    print(f"3 processes for 2 groups: exit codes {codes} (expected [0, 0, 1])")
+    if codes != [0, 0, 1] or "assigned no groups" not in refused[0]:
+        fail("3 processes for 2 groups: not exactly one refused")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
@@ -1088,6 +1386,16 @@ def main() -> None:
     for line in build.ptxas_report().splitlines():
         if line.strip():
             print("  " + line.strip())
+    if "--mesh-only" in sys.argv[1:]:
+        # phase 15 alone: the call to make on a machine with four cards
+        mesh = phase_mesh(dev, card, 20)
+        print(json.dumps({"mesh": {f"{k[0]} {k[1]} {k[2][0]}x{k[2][1]}": v
+                                   for k, v in mesh.items() if isinstance(k, tuple)}}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return
 
     plan = build_plan(benchmark_config())
     rx = CompiledReceiver(plan, BLOCK, device=dev)
@@ -1249,6 +1557,12 @@ def main() -> None:
     phase_bench(card)
     live_mc = sum(n for k, n in live["launches"].items() if k.startswith("mix_cascade"))
 
+    # ---- 15-18. the sharded receiver and the two multi-process partitions ----
+    mesh = phase_mesh(dev, card, reps)
+    phase_cband(dev, card)
+    phase_alt_mesh(alt)
+    phase_multihost(card)
+
     kernels = [
         {"name": "dc_ingest", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
@@ -1303,6 +1617,15 @@ def main() -> None:
          "ms": live["mc_ms"], "plain_ms": live["mc_plain_ms"],
          **timing_keys(devt, [f"mix_cascade flagship block {LIVE_BLOCK} {k}"
                               for k in live["sites"]])},
+        {"name": f"mix_cascade (per-shard merged front, flagship 4x1 mesh on one card, "
+                 f"block {BLOCK}: {len(mesh['sites'])} sites of T={mesh['shard_t']})",
+         "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
+         "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
+         "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
+         "launches": mesh["launches"], "max_abs_err": mesh["err"],
+         "ms": mesh["ms"], "plain_ms": mesh["plain_ms"],
+         **timing_keys(devt, [f"mix_cascade flagship mesh 4x1 block {BLOCK} {k}"
+                              for k in mesh["sites"]])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -3,15 +3,21 @@ their bounds (needs a CUDA device).
 
     python3 sdrreceiver_tpu_torch/cuda/devtime.py [--root DIR] [--calls N]
     python3 sdrreceiver_tpu_torch/cuda/devtime.py --ab OTHER_ROOT
+    python3 sdrreceiver_tpu_torch/cuda/devtime.py --steps
 
 The first form times the kernels of the ``sdrreceiver_tpu_torch`` package
-found under ``--root`` (default: this file's checkout), and the flagship
-``step_u8`` at block 1,536,000, and prints one JSON line.  ``--ab`` runs that form in turns, OTHER_ROOT, this checkout, this
-checkout, OTHER_ROOT, each in a process of its own on the same card, and
-prints both versions' times per case: the way to compare a change with its
-parent (unpack the parent with ``git archive`` into a gitignored
-directory).  Only the package's public wrappers are used (``DcIngest``,
-``CompiledReceiver.mix_cascades``), so any version of the port can be timed.
+found under ``--root`` (default: this file's checkout), with the sharded
+receiver's per-shard sites unless ``--no-mesh``, and the flagship
+``step_u8`` at block 1,536,000, and prints one JSON line.  ``--ab`` runs
+that form in turns, OTHER_ROOT, this checkout, this checkout, OTHER_ROOT,
+each in a process of its own on the same card, and prints both versions'
+times per case: the way to compare a change with its parent (unpack the
+parent with ``git archive`` into a gitignored directory).  Only the
+package's public wrappers are used (``DcIngest``,
+``CompiledReceiver.mix_cascades``), so any version of the port can be
+timed.  ``--steps`` profiles whole flagship steps instead, one device
+against 4x1, 2x2 and 1x4 meshes of the card: wall time, device time,
+kernels per step and the device's idle share.
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -38,6 +44,9 @@ FP64_FLOPS = 67e12
 # site of CompiledReceiver.mix_cascades()
 DC_CASES = [("u8", 1_536_000), ("u8", 384_000), ("f32", 480_000), ("u8", 4224), ("u8", 72_000)]
 MC_PLANS = [("flagship", 1_536_000), ("flagship", 384_000), ("altrate", 480_000)]
+# the sharded receiver's per-shard sites: a plan, its block and a mesh shape
+# over four shards of one card
+MESH_PLANS = [("flagship", 1_536_000, (4, 1))]
 
 
 def dc_bound(kind: str, t_len: int) -> tuple[float, str]:
@@ -92,9 +101,11 @@ def device_us(fn, calls: int) -> tuple[float, dict[str, int]]:
     return total / calls, rows
 
 
-def measure(calls: int = 50, seed: int = 0, step: bool = True) -> list[dict]:
+def measure(calls: int = 50, seed: int = 0, step: bool = True, mesh: bool = True) -> list[dict]:
     """Every kernel case: its device time, kernel rows per call and bound;
-    with ``step``, the flagship step's wall time last."""
+    with ``mesh``, the sharded receiver's per-shard sites too (a checkout
+    without ``dist/`` passes False); with ``step``, the flagship step's wall
+    time last."""
     import numpy as np
     import torch
 
@@ -116,15 +127,26 @@ def measure(calls: int = 50, seed: int = 0, step: bool = True) -> list[dict]:
         bound, by = dc_bound(kind, t_len)
         out.append({"kernel": "dc_ingest", "case": f"{kind} T={t_len}", "device_us": us,
                     "rows_per_call": rows, "bound_us": bound, "bound_by": by})
+    receivers = []
     for plan_name, block in MC_PLANS:
         cfg = (flagship.benchmark_config if plan_name == "flagship" else flagship.altrate_config)()
-        rx = CompiledReceiver(build_plan(cfg), block, device=dev)
+        receivers.append((f"{plan_name} block {block}",
+                          CompiledReceiver(build_plan(cfg), block, device=dev)))
+    if mesh:
+        from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
+
+        for plan_name, block, (n_time, n_chan) in MESH_PLANS:
+            cfg = (flagship.benchmark_config if plan_name == "flagship" else flagship.altrate_config)()
+            rx = ShardedReceiver(build_plan(cfg), make_mesh(n_time, n_chan, [dev] * (n_time * n_chan)),
+                                 block)
+            receivers.append((f"{plan_name} mesh {n_time}x{n_chan} block {block}", rx))
+    for name, rx in receivers:
         for site, (mc, t_len) in rx.mix_cascades().items():
             x = torch.tensor(rng.uniform(-128, 128, (2, 1, t_len)).astype(np.float32), device=dev)
             ph = torch.tensor(rng.integers(0, mc.fs, mc.channels), device=dev)
             us, rows = device_us(lambda: mc(ph, x[0], x[1]), calls)
             bound, by, moved, flops = mc_bound(mc.depths, t_len, shared=True)
-            out.append({"kernel": "mix_cascade", "case": f"{plan_name} block {block} {site}",
+            out.append({"kernel": "mix_cascade", "case": f"{name} {site}",
                         "C": mc.channels, "depths": sorted(set(mc.depths)), "T": t_len,
                         "device_us": us, "rows_per_call": rows, "bound_us": bound,
                         "bound_by": by, "bytes": moved, "fp64_flops": flops})
@@ -161,6 +183,50 @@ def step_case(block: int, seed: int, steps: int = 20) -> dict:
             "step_ms": start.elapsed_time(end) / steps}
 
 
+def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
+    """Where a step's time goes, one device against a mesh on the same card:
+    the flagship ``step_u8`` at 1,536,000 and 384,000 on one device and on
+    4x1, 2x2 and 1x4 meshes of four shards of the card.  Per step: wall ms
+    (CUDA events around ``calls`` steps), device µs and CUDA rows (kernels
+    and memsets, ``torch.profiler``), and the device's idle share."""
+    import numpy as np
+    import torch
+
+    from sdrreceiver_tpu_torch import flagship
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    plan = build_plan(flagship.benchmark_config())
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = []
+    for block in (1_536_000, 384_000):
+        raw = torch.tensor(np.random.default_rng(seed).integers(100, 156, (2, 2 * block),
+                                                                 dtype=np.uint8), device=dev)
+        rxs = [("one device", CompiledReceiver(plan, block, device=dev))]
+        rxs += [(f"mesh {t}x{c}", ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block))
+                for t, c in ((4, 1), (2, 2), (1, 4))]
+        for name, rx in rxs:
+            st = {"s": rx.init_state(), "i": 0}
+
+            def step():
+                st["i"] ^= 1
+                st["s"], _ = rx.step_u8(st["s"], raw[st["i"]])
+
+            us, rows = device_us(step, calls)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(calls):
+                step()
+            end.record()
+            torch.cuda.synchronize()
+            wall = start.elapsed_time(end) / calls
+            out.append({"case": f"flagship block {block} {name}", "wall_ms": wall,
+                        "device_us": us, "rows_per_step": sum(rows.values()),
+                        "idle_share": 1.0 - us / 1e3 / wall})
+    return out
+
+
 def card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -172,10 +238,12 @@ def ab(other: pathlib.Path, here: pathlib.Path, calls: int) -> None:
     """OTHER, HERE, HERE, OTHER in processes of their own; both versions'
     times per case, and the mean of each pair."""
     runs = []
+    # the per-shard cases only where both checkouts have the sharded receiver
+    no_mesh = [] if (other / "sdrreceiver_tpu_torch" / "dist").exists() else ["--no-mesh"]
     for name, root in (("other", other), ("here", here), ("here", here), ("other", other)):
         res = subprocess.run(
             [sys.executable, str(pathlib.Path(__file__).resolve()), "--root", str(root),
-             "--calls", str(calls)],
+             "--calls", str(calls), *no_mesh],
             capture_output=True, text=True, check=False,
         )
         if res.returncode:
@@ -212,6 +280,10 @@ def main(argv=None) -> None:
     ap.add_argument("--calls", type=int, default=50)
     ap.add_argument("--ab", type=pathlib.Path, default=None,
                     help="another checkout's root, timed in turns with this one")
+    ap.add_argument("--no-mesh", action="store_true",
+                    help="leave out the sharded receiver's per-shard sites")
+    ap.add_argument("--steps", action="store_true",
+                    help="profile whole steps instead: one device against meshes on the card")
     args = ap.parse_args(argv)
     if args.ab is not None:
         ab(args.ab.resolve(), pathlib.Path(__file__).resolve().parents[2], args.calls)
@@ -223,7 +295,14 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("devtime: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
-    cases = measure(args.calls)
+    if args.steps:
+        steps = step_profiles()
+        for c in steps:
+            print(f"{c['case']:36s} wall {c['wall_ms']:8.3f} ms, device {c['device_us']:8.1f} us "
+                  f"over {c['rows_per_step']:.0f} CUDA rows, idle {c['idle_share']:.3f}")
+        print(json.dumps({"card": card(), "steps": steps}))
+        return
+    cases = measure(args.calls, mesh=not args.no_mesh)
     print(json.dumps({"root": str(args.root), "card": card(), "cases": cases}))
 
 

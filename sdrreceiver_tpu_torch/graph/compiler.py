@@ -136,8 +136,9 @@ class CompiledReceiver:
       ``tap/<name>``     f32 ``[2, T']`` planar scope tap, the last
                          ``tap_samples`` samples (for each ``emit_taps``)
 
-    State is a nested dict of tensors on ``device``.  ``device="cuda"``
-    without a CUDA device raises.  ``use_kernels=False`` runs the kernels'
+    State is a nested dict of tensors on ``device``, the card by default:
+    ``device="cuda"`` without a CUDA device raises, and the CPU runs only
+    when asked for (``device="cpu"``).  ``use_kernels=False`` runs the kernels'
     plain versions on any device.  Audio filters of at least
     ``ossfft_min_taps`` taps run through the overlap-save FFT engine
     (``kernels/ossfft``; None disables it)."""
@@ -147,7 +148,7 @@ class CompiledReceiver:
         plan: ReceiverPlan,
         block_samples: int | None = None,
         emit_taps: tuple[str, ...] = (),
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
         use_kernels: bool = True,
         ossfft_min_taps: int | None = 128,
         tap_samples: int | None = 8192,
@@ -196,8 +197,31 @@ class CompiledReceiver:
         self._hb1 = fir.prepare_taps(hb, 1, dev)
         self._c: dict[str, torch.Tensor] = {}
         self._oss: dict[str, dict] = {}
-        # the stateless mix-cascade kernels need the carried xtail to warm
-        # up from; without one every cascade runs the stateful path
+        self._build_kernels()
+        for g in plan.groups:
+            for bi, b in enumerate(g.buckets):
+                bk = f"g{g.index}/b{bi}"
+                c = b.channels
+                self._c[f"{bk}/hb"] = fir.prepare_taps(hb, c, dev)
+                self._c[f"{bk}/hilbert"] = fir.prepare_taps(hilb, c, dev)
+                self._c[f"{bk}/gains"] = torch.tensor(b.gains(), device=dev)
+                lt = b.late_taps()
+                if lt is not None:
+                    self._c[f"{bk}/late"] = fir.prepare_taps(lt, c, dev)
+                at = b.audio_taps()
+                if at is None:
+                    continue
+                if self.ossfft_min_taps is not None and at.shape[1] >= self.ossfft_min_taps:
+                    self._oss[bk] = ossfft.oss_prepare(at, device=dev)
+                else:
+                    self._c[f"{bk}/audio"] = fir.prepare_taps(at, None, dev)
+
+    def _build_kernels(self) -> None:
+        """The mix-cascade kernel wrappers of the group fronts and buckets.
+        The stateless kernels need the carried xtail to warm up from;
+        without one every cascade runs the stateful path."""
+        dev = self.device
+        plan = self.plan
         stateless = bool(self.xtail_len())
         cands = [g for g in plan.groups if not g.direct and g.stages >= 1] if stateless else []
         # one kernel call for every group front when two or more cascade:
@@ -221,25 +245,10 @@ class CompiledReceiver:
         self._bucket_mc: dict[str, MixCascade] = {}
         for g in plan.groups:
             for bi, b in enumerate(g.buckets):
-                bk = f"g{g.index}/b{bi}"
-                c = b.channels
                 if stateless and b.stages >= 1:
-                    self._bucket_mc[bk] = MixCascade(
-                        [b.stages] * c, b.mix_fs(g.out_rate), b.mixer_freqs(), dev
+                    self._bucket_mc[f"g{g.index}/b{bi}"] = MixCascade(
+                        [b.stages] * b.channels, b.mix_fs(g.out_rate), b.mixer_freqs(), dev
                     )
-                self._c[f"{bk}/hb"] = fir.prepare_taps(hb, c, dev)
-                self._c[f"{bk}/hilbert"] = fir.prepare_taps(hilb, c, dev)
-                self._c[f"{bk}/gains"] = torch.tensor(b.gains(), device=dev)
-                lt = b.late_taps()
-                if lt is not None:
-                    self._c[f"{bk}/late"] = fir.prepare_taps(lt, c, dev)
-                at = b.audio_taps()
-                if at is None:
-                    continue
-                if self.ossfft_min_taps is not None and at.shape[1] >= self.ossfft_min_taps:
-                    self._oss[bk] = ossfft.oss_prepare(at, device=dev)
-                else:
-                    self._c[f"{bk}/audio"] = fir.prepare_taps(at, None, dev)
 
     def mix_cascades(self) -> dict[str, tuple[MixCascade, int]]:
         """Every mix-cascade kernel wrapper this receiver launches, by site
@@ -427,21 +436,29 @@ class CompiledReceiver:
             zr, zi = zr[..., -lim:], zi[..., -lim:]
         return torch.stack([zr, zi])
 
-    def _step_raw(self, state: dict, raw: torch.Tensor):
+    def _ingest(self, state: dict, raw: torch.Tensor):
+        """Interleaved ``raw`` -> (new DC mean, post-DC planar input)."""
         if self.plan.dc_correct:
-            mean, x = self._run(self.dc_ingest, state["dc"], raw)
-        elif raw.dtype == torch.uint8:
-            mean, x = state["dc"], ingest.u8_iq_to_planar(raw)
-        else:
-            mean, x = state["dc"], ingest.f32_pairs_to_planar(raw)
+            return self._run(self.dc_ingest, state["dc"], raw)
+        if raw.dtype == torch.uint8:
+            return state["dc"], ingest.u8_iq_to_planar(raw)
+        return state["dc"], ingest.f32_pairs_to_planar(raw)
+
+    def _input_tail(self, x, n: int | None) -> torch.Tensor:
+        """The last ``n`` samples (all for None) of the post-DC input as
+        planar ``[2, n]``."""
+        return torch.stack([x[0][-n:], x[1][-n:]]) if n else torch.stack(x)
+
+    def _step_raw(self, state: dict, raw: torch.Tensor):
+        mean, x = self._ingest(state, raw)
         new_state, zs = self._front(state, x)
         new_state["dc"] = mean
         p = self.xtail_len()
         if p:
-            new_state["xtail"] = torch.stack([x[0][-p:], x[1][-p:]])
+            new_state["xtail"] = self._input_tail(x, p)
         outputs: dict[str, torch.Tensor] = {}
         if "main" in self.emit_taps:
-            outputs["tap/main"] = self._tap(*x)
+            outputs["tap/main"] = self._input_tail(x, self.tap_samples)
         for g in self.plan.groups:
             gk = f"g{g.index}"
             zr, zi = zs[gk]

@@ -40,6 +40,9 @@ from sdrreceiver_tpu_torch.io.iqfile import synthesize_channels, to_u8
 from test_torch_modules import _to_ini
 from test_torch_receiver import _assert_audio_close
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 N_BLOCKS = 3
 IQ_INI = test_receiver_e2e.SMALL_INI.replace(
     "3\\topic=VFO13", "3\\filter_bandwidth=3000\n3\\topic=VFO13"
@@ -100,7 +103,7 @@ def runs():
             # the iq plan's audio is quieter: its short outputs (384 samples
             # per block) leave little room under the pooled flip-rate bar
             raw = _signal(plan, block, 0.5 if name == "iq" else 1.0)
-            rx = CompiledReceiver(plan, block, emit_taps=taps)
+            rx = CompiledReceiver(plan, block, emit_taps=taps, device="cpu")
             jrx = JaxReceiver(jplan, block, emit_taps=taps)
             jpal = JaxReceiver(jplan, block, emit_taps=taps, use_pallas=True, pallas_interpret=True)
             cache[name] = {
@@ -200,7 +203,8 @@ def test_overlap_save_audio_matches_direct(runs):
     """The 156-tap bank through overlap-save vs the direct FIR on the same
     blocks: within 1 LSB."""
     r = runs("iq")
-    direct = CompiledReceiver(r["plan"], PLANS["iq"][1], emit_taps=IQ_TAPS, ossfft_min_taps=None)
+    direct = CompiledReceiver(r["plan"], PLANS["iq"][1], emit_taps=IQ_TAPS, ossfft_min_taps=None,
+                              device="cpu")
     assert not direct._oss
     _assert_audio_close(_audio(_run_port(direct, r["raw"])[0]), _audio(r["port"][0]))
 

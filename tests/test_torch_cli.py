@@ -37,6 +37,9 @@ from sdrreceiver_tpu_torch.obs import metrics
 from test_torch_altrate import PLANS
 from test_torch_modules import _to_ini
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 BLOCK = 153600  # a multiple of both alt-rate plans' divisors
 INIS = {**{k: v[0] for k, v in PLANS.items()}, "flagship": _to_ini(graft._benchmark_config())}
 
@@ -142,7 +145,7 @@ def test_plan_fingerprint_and_cost_model_equal(name):
 @pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
 def test_npz_files_cross(tmp_path, direction):
     plan, jplan = _plans("alt")
-    rx, jrx = CompiledReceiver(plan, BLOCK), JaxReceiver(jplan, BLOCK)
+    rx, jrx = CompiledReceiver(plan, BLOCK, device="cpu"), JaxReceiver(jplan, BLOCK)
     raw = np.random.default_rng(2).integers(0, 256, 2 * BLOCK).astype(np.uint8)
     if direction == "jax_to_port":
         s, _ = jrx.step_u8(jrx.init_state(), raw)
@@ -261,12 +264,19 @@ def test_save_state_resumes_across_clis(tmp_path, altrate, jax_straight, first):
 
 
 @pytest.mark.parametrize(
-    "extra", [["--mesh", "2x1"], ["--coordinator", "localhost:1234"], ["--partition", "global"]],
+    "extra", [["--mesh", "2x1"], ["--coordinator", "127.0.0.1:{port}"], ["--partition", "global"]],
     ids=["mesh", "coordinator", "partition_global"],
 )
-def test_dist_options_exit_1(altrate, capsys, extra):
-    assert _process(main, altrate / "alt.ini", altrate / "alt.u8", altrate / "x", *extra) == 1
-    assert "dist/ is not ported yet" in capsys.readouterr().err
+def test_dist_options_exit_1(tmp_path, altrate, capsys, jax_straight, extra):
+    """``process-file`` with a 2x1 mesh of CPU devices, with a coordinator
+    and a process group of one, and with ``--partition global`` in one
+    process: each exits 0 with the straight JAX run's audio, within 1 LSB."""
+    extra = [e.format(port=_free_port()) for e in extra]
+    assert _process(main, altrate / "alt.ini", altrate / "alt.u8", tmp_path / "x", *extra) == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["blocks"] == 4 and summary["device"] == "cpu"
+    assert ("multihost" in summary) == ("--coordinator" in extra)
+    _close(_audio(tmp_path / "x"), jax_straight)
 
 
 def test_device_cuda_without_card_exits_1(altrate, capsys):

@@ -35,6 +35,9 @@ from sdrreceiver_tpu_torch.obs import metrics, spectrum
 from test_torch_altrate import PLANS
 from test_torch_modules import _to_ini
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 
 def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
@@ -157,7 +160,7 @@ def test_spectrum_ema_smoothed_equal(rng):
 @pytest.mark.parametrize("name", sorted(PLANS))
 def test_tap_rates_rates_shapes_equal(name):
     text, block = PLANS[name]
-    rx = CompiledReceiver(build_plan(parse_ini_text(text)), block)
+    rx = CompiledReceiver(build_plan(parse_ini_text(text)), block, device="cpu")
     jrx = JaxReceiver(jbuild_plan(jparse(text)), block)
     assert rx.tap_rates() == jrx.tap_rates()
     assert rx.rates() == jrx.rates()
@@ -187,14 +190,15 @@ def test_tap_errors_as_jax(text, taps, match):
     with pytest.raises(ValueError, match=match):
         JaxReceiver(jplan, 49152, emit_taps=taps)
     with pytest.raises(ValueError, match=match):
-        CompiledReceiver(plan, 49152, emit_taps=taps)
+        CompiledReceiver(plan, 49152, emit_taps=taps, device="cpu")
 
 
 # ---------------------------------------------------- burst entries
 @pytest.fixture(scope="module")
 def alt_rx():
     text = _to_ini(altrate_config())
-    return CompiledReceiver(build_plan(parse_ini_text(text)), 15360, emit_taps=("g1", "AL001"))
+    return CompiledReceiver(build_plan(parse_ini_text(text)), 15360, emit_taps=("g1", "AL001"),
+                            device="cpu")
 
 
 def _alt_blocks(rx, k):

@@ -22,6 +22,9 @@ from sdrreceiver_tpu_torch.cuda.frontend import MixCascade, mix_cascade_plain
 from sdrreceiver_tpu_torch.flagship import benchmark_config
 from sdrreceiver_tpu_torch.graph.plan import build_plan
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 
 @pytest.mark.parametrize("stages", range(8))
 def test_composite_taps_and_warmup_exact(stages):

@@ -40,6 +40,9 @@ from sdrreceiver_tpu_torch.graph.plan import build_plan
 from sdrreceiver_tpu_torch.io import iqfile, native, rtlusb, rtltcp
 from sdrreceiver_tpu_torch.obs.spectrum import LiveScope
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 TESTS = pathlib.Path(__file__).resolve().parent
 REPO = TESTS.parent
 BLOCK = 49152
@@ -61,6 +64,12 @@ size=1
 1\\data_rate=600
 1\\topic=VFO01
 """
+
+
+def _free_port() -> int:
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
 
 
 def _mini(port: int, remote: str = "") -> str:
@@ -360,8 +369,24 @@ def test_scope_cadence_and_snapshot_equal_jax():
     np.testing.assert_allclose(a["db"], b["db"], rtol=0, atol=0.0101)
 
 
+@pytest.fixture(scope="module")
+def scope_receivers():
+    """The port's and the JAX receiver with the main and VFO01 taps, built
+    once for both cases (the JAX step compiles once)."""
+    from sdrreceiver_tpu.graph.compiler import CompiledReceiver as JaxReceiver
+    from sdrreceiver_tpu.graph.config import parse_ini_text as jparse
+    from sdrreceiver_tpu.graph.plan import build_plan as jbuild_plan
+
+    taps = ("main", "VFO01")
+    return {
+        "port": CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK,
+                                 emit_taps=taps, device="cpu"),
+        "jax": JaxReceiver(jbuild_plan(jparse(_mini(29931))), BLOCK, emit_taps=taps),
+    }
+
+
 @pytest.mark.parametrize("switch_in", ["callback", "source"])
-def test_scope_through_run_pipeline_like_jax(switch_in):
+def test_scope_through_run_pipeline_like_jax(switch_in, scope_receivers):
     """A live scope as ``run --scope`` wires it (``wants`` the fetch filter,
     ``observe`` in the callback), switched from main to VFO01 after block
     3's callback, either in that callback or while the source hands over
@@ -371,19 +396,13 @@ def test_scope_through_run_pipeline_like_jax(switch_in):
     consumed at once, and the curves agree to 1e-2 dB (the taps themselves
     differ at float rounding)."""
     from sdrreceiver_tpu.core.runtime import run_pipeline as jrun_pipeline
-    from sdrreceiver_tpu.graph.compiler import CompiledReceiver as JaxReceiver
-    from sdrreceiver_tpu.graph.config import parse_ini_text as jparse
-    from sdrreceiver_tpu.graph.plan import build_plan as jbuild_plan
     from sdrreceiver_tpu_torch.core.runtime import run_pipeline
 
     raw = _u8_stream(12, seed=4).reshape(12, -1)
-    taps = ("main", "VFO01")
     got, scopes = {}, {}
     for name, rx, run, scope_cls in (
-        ("port", CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK,
-                                  emit_taps=taps), run_pipeline, LiveScope),
-        ("jax", JaxReceiver(jbuild_plan(jparse(_mini(29931))), BLOCK, emit_taps=taps),
-         jrun_pipeline, JLiveScope),
+        ("port", scope_receivers["port"], run_pipeline, LiveScope),
+        ("jax", scope_receivers["jax"], jrun_pipeline, JLiveScope),
     ):
         scope = scopes[name] = scope_cls(rx.tap_rates(), initial="main")
         seen = got[name] = []
@@ -492,7 +511,7 @@ def test_run_rtl_tcp_matches_step_u8_and_jax(tmp_path, capsys):
         assert len(f) == 3 and f[0] == b"VFO01" and struct.unpack("<I", f[1])[0] == 12000
     pcm = np.concatenate([np.frombuffer(f[2], np.int16) for f in frames])
 
-    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK)
+    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK, device="cpu")
     state, direct = rx.init_state(), []
     for blk in raw.reshape(n, -1):
         state, o = rx.step_u8(state, torch.from_numpy(blk))
@@ -525,7 +544,7 @@ def test_run_rtl_tcp_without_native_ring_reads_the_socket(tmp_path, capsys, monk
     assert [c[0] for c in cmds[:5]] == [0x08, 0x03, 0x0D, 0x02, 0x01]
     assert len(frames) == n
     pcm = np.concatenate([np.frombuffer(f[2], np.int16) for f in frames])
-    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29937))), BLOCK)
+    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29937))), BLOCK, device="cpu")
     state, direct = rx.init_state(), []
     for blk in raw.reshape(n, -1):
         state, o = rx.step_u8(state, torch.from_numpy(blk))
@@ -534,7 +553,7 @@ def test_run_rtl_tcp_without_native_ring_reads_the_socket(tmp_path, capsys, monk
 
 
 def test_run_iq_fast_frames_contiguous(tmp_path, capsys):
-    """``run --iq --fast`` over a recording looped 5 times: every frame
+    """``run --iq --fast`` over a recording looped twice: every frame
     carries the exact topic and rate and one block's audio, and the frames
     joined are a contiguous stretch of the ``process-file`` audio of the
     looped recording, ending at the last block (no gap, overlap or
@@ -547,19 +566,23 @@ def test_run_iq_fast_frames_contiguous(tmp_path, capsys):
     assert main(["synth", "-s", str(ini), "--out", str(iq), "--seconds", "0.256",
                  "--amplitude", "5", "--noise", "1"]) == 0
     assert iq.stat().st_size == 8 * 2 * BLOCK
-    (tmp_path / "loop.u8").write_bytes(iq.read_bytes() * 5)
+    (tmp_path / "loop.u8").write_bytes(iq.read_bytes() * 2)
     assert main(["process-file", "-s", str(ini), "--iq", str(tmp_path / "loop.u8"),
                  "--out", str(tmp_path / "o"), "--block", str(BLOCK), "--device", "cpu"]) == 0
     offline = np.fromfile(tmp_path / "o" / "audio_VFO01.s16", np.int16)
     capsys.readouterr()
-    n, per = 40, BLOCK // 128
+    n, per = 16, BLOCK // 128
     assert offline.size >= n * per
     sub = _Sub(29933)
     sub.collect(n)
     try:
         rc = main(["run", "-s", str(ini), "--iq", str(iq), "--fast", "--block", str(BLOCK),
                    "--max-blocks", str(n), "--device", "cpu"])
-        time.sleep(0.5)
+        # the last frames may still be in flight: wait until they stop coming
+        seen, deadline = -1, time.monotonic() + 10.0
+        while len(sub.frames) != seen and len(sub.frames) < n and time.monotonic() < deadline:
+            seen = len(sub.frames)
+            time.sleep(0.5)
     finally:
         sub.close()
     assert rc == 0 and json.loads(capsys.readouterr().out)["blocks"] == n
@@ -751,30 +774,67 @@ def test_bench_json_equal_jax(tmp_path, capsys):
 
 @pytest.mark.parametrize("command", ["run", "bench"])
 @pytest.mark.parametrize(
-    "extra", [["--mesh", "2x1"], ["--coordinator", "localhost:1234"], ["--partition", "global"],
+    "extra", [["--mesh", "2x1"], ["--coordinator", "127.0.0.1:{port}"], ["--partition", "global"],
               ["--device", "cuda"]],
     ids=["mesh", "coordinator", "partition_global", "cuda_without_card"],
 )
 def test_unported_options_and_missing_card_exit_1(tmp_path, capsys, command, extra):
-    """Decided inside the test: with a card present there is nothing to
-    show for ``--device cuda``."""
+    """The dist/ options on ``run`` (over ``--iq --fast``) and ``bench``: a
+    2x1 mesh of CPU devices (``bench`` reports ``"mode": "sharded"``), a
+    coordinator with a process group of one, ``--partition global`` in one
+    process; each exits 0.  ``--device cuda`` without a card exits 1
+    (decided inside the test: with a card present there is nothing to show
+    for it)."""
     if extra[-1] == "cuda" and torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     ini = tmp_path / "m.ini"
-    ini.write_text(_mini(29935))
+    ini.write_text(_mini(_free_port()))
     dev = [] if "--device" in extra else ["--device", "cpu"]
-    assert main([command, "-s", str(ini), "--max-blocks", "1", *dev, *extra]) == 1
-    err = capsys.readouterr().err
-    assert ("CUDA is not available" if extra[-1] == "cuda" else "dist/ is not ported yet") in err
+    extra = [e.format(port=_free_port()) for e in extra]
+    if command == "run":
+        raw = _u8_stream(1)
+        (tmp_path / "r.u8").write_bytes(raw.tobytes())
+        src = ["--iq", str(tmp_path / "r.u8"), "--fast", "--max-blocks", "1"]
+    else:
+        src = ["--blocks", "1"]
+    capsys.readouterr()
+    rc = main([command, "-s", str(ini), "--block", str(BLOCK), *src, *dev, *extra])
+    out, err = capsys.readouterr()
+    if extra[-1] == "cuda":
+        assert rc == 1 and "CUDA is not available" in err
+        return
+    assert rc == 0, err
+    summary = json.loads(out.strip().splitlines()[-1])
+    assert summary["device"] == "cpu"
+    if command == "bench":
+        assert summary["mode"] == ("sharded" if "--mesh" in extra else "kernels")
+    else:
+        assert summary["blocks"] == 1
+    if "--coordinator" in extra:
+        assert summary["multihost"]["num_processes"] == 1
+        assert summary["multihost"]["local_topics"] == ["VFO01"]
 
 
 @pytest.mark.parametrize("flag", ["--num-processes", "--process-id"])
-def test_multihost_flags_are_not_accepted(tmp_path, capsys, flag):
-    """The JAX CLI's multi-host flags belong to dist/: the port's parser
-    does not have them, so they cannot be passed and silently ignored."""
+def test_multihost_flags_are_not_accepted(tmp_path, capsys, monkeypatch, flag):
+    """The JAX CLI's multi-host flags: the port's parser takes them and they
+    reach ``multihost.initialize`` with ``--coordinator`` (stubbed here to a
+    process group of one)."""
+    from sdrreceiver_tpu_torch.dist import multihost
+
+    seen = []
+
+    def fake(coordinator=None, num_processes=None, process_id=None):
+        seen.append((coordinator, num_processes, process_id))
+        return 0, 1
+
+    monkeypatch.setattr(multihost, "initialize", fake)
     ini = tmp_path / "m.ini"
-    ini.write_text(_mini(29935))
-    with pytest.raises(SystemExit) as e:
-        main(["run", "-s", str(ini), "--device", "cpu", "--max-blocks", "1", flag, "1"])
-    assert e.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
+    ini.write_text(_mini(_free_port()))
+    (tmp_path / "r.u8").write_bytes(_u8_stream(1).tobytes())
+    assert main(["run", "-s", str(ini), "--device", "cpu", "--iq", str(tmp_path / "r.u8"),
+                 "--fast", "--block", str(BLOCK), "--max-blocks", "1",
+                 "--coordinator", "h:1", flag, "1"]) == 0
+    want = ("h:1", 1, None) if flag == "--num-processes" else ("h:1", None, 1)
+    assert seen == [want]
+    assert json.loads(capsys.readouterr().out)["multihost"]["process_id"] == 0

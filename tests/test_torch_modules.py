@@ -40,6 +40,9 @@ from sdrreceiver_tpu_torch.kernels import (
     usbdemod,
 )
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 
 def _np(t):
     return t.numpy() if isinstance(t, torch.Tensor) else np.asarray(t)

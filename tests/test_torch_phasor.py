@@ -23,6 +23,9 @@ from sdrreceiver_tpu_torch.flagship import benchmark_config
 from sdrreceiver_tpu_torch.graph.plan import build_plan
 from sdrreceiver_tpu_torch.kernels import dc, nco
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 ULP1 = 2.0**-52  # one double ulp of 1
 
 

@@ -36,6 +36,9 @@ from sdrreceiver_tpu_torch.graph.config import parse_ini_text
 from sdrreceiver_tpu_torch.graph.plan import build_plan
 from sdrreceiver_tpu_torch.io.iqfile import synthesize_channels, to_u8
 
+# six xdist workers share the machine's cores: a few torch threads each
+torch.set_num_threads(2)
+
 BLOCK = 49152
 N_BLOCKS = 3
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -82,7 +85,7 @@ def runs():
     plan = build_plan(benchmark_config())
     jplan = jbuild_plan(graft._benchmark_config())
     raw = _signal(plan)
-    rx = CompiledReceiver(plan, BLOCK)
+    rx = CompiledReceiver(plan, BLOCK, device="cpu")
     jrx = JaxReceiver(jplan, BLOCK)
     jpal = JaxReceiver(jplan, BLOCK, use_pallas=True, pallas_interpret=True)
     # the JAX receiver's kernels are all engaged at this block
@@ -192,7 +195,7 @@ def test_other_plans_match_jax(ini):
         warnings.simplefilter("ignore")
         plan, jplan = build_plan(parse_ini_text(text)), jbuild_plan(jparse(text))
     raw = _signal(plan)
-    rx = CompiledReceiver(plan, BLOCK)
+    rx = CompiledReceiver(plan, BLOCK, device="cpu")
     _assert_audio_close(_run_port(rx, raw)[0], _run_jax(JaxReceiver(jplan, BLOCK), raw)[0])
 
 
@@ -202,14 +205,15 @@ def test_other_plans_match_jax(ini):
 def test_xtail_len_equals_jax(block):
     plan = build_plan(benchmark_config())
     jplan = jbuild_plan(graft._benchmark_config())
-    assert CompiledReceiver(plan, block).xtail_len() == JaxReceiver(jplan, block).xtail_len()
+    assert CompiledReceiver(plan, block, device="cpu").xtail_len() == JaxReceiver(jplan, block).xtail_len()
 
 
 @pytest.mark.parametrize("block,want", [(153600, 2304), (480000, 3328)], ids=lambda b: f"{b}")
 def test_xtail_len_equals_jax_altrate(block, want):
     plan = build_plan(altrate_config())
     jplan = jbuild_plan(graft._altrate_config())
-    assert CompiledReceiver(plan, block).xtail_len() == JaxReceiver(jplan, block).xtail_len() == want
+    rx = CompiledReceiver(plan, block, device="cpu")
+    assert rx.xtail_len() == JaxReceiver(jplan, block).xtail_len() == want
 
 
 @pytest.mark.parametrize(
@@ -266,7 +270,7 @@ def short_runs():
     for name, (cfg, jcfg, block) in SHORT.items():
         plan, jplan = build_plan(cfg()), jbuild_plan(jcfg())
         raw = _short_raw(plan, block, N_SHORT)
-        rx = CompiledReceiver(plan, block)
+        rx = CompiledReceiver(plan, block, device="cpu")
         jrx = JaxReceiver(jplan, block)
         jpal = JaxReceiver(jplan, block, use_pallas=True, pallas_interpret=True)
         runs[name] = {"plan": plan, "raw": raw, "rx": rx, "jrx": jrx,
@@ -306,7 +310,8 @@ def test_short_blocks_match_one_long_block():
     samples: the same audio within 1 LSB."""
     plan = build_plan(benchmark_config())
     raw = _short_raw(plan, 65536, 1, seed=3)
-    short, long_ = CompiledReceiver(plan, 2048), CompiledReceiver(plan, 65536)
+    short = CompiledReceiver(plan, 2048, device="cpu")
+    long_ = CompiledReceiver(plan, 65536, device="cpu")
     assert long_.xtail_len() and long_.mix_cascades() and not short.mix_cascades()
     outs, _ = _steps(short, raw.reshape(32, 4096))
     joined = [{k: np.concatenate([o[k] for o in outs]) for k in outs[0]}]
@@ -347,13 +352,26 @@ def test_cuda_receiver_without_card_raises():
         CompiledReceiver(build_plan(benchmark_config()), BLOCK, device="cuda")
 
 
+def test_receiver_defaults_to_the_card():
+    """``CompiledReceiver(plan)`` runs on the card unless the caller asks
+    for the CPU: without one it raises instead of falling back.  Decided
+    inside the test: on a machine with a card there is nothing to show."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        CompiledReceiver(build_plan(benchmark_config()), BLOCK)
+    assert CompiledReceiver(build_plan(benchmark_config()), BLOCK, device="cpu").device.type == "cpu"
+
+
 def test_port_never_imports_jax():
     code = (
         "import importlib, pkgutil, sys\n"
         "import sdrreceiver_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for m in mods: importlib.import_module(m)\n"
-        "assert len(mods) >= 39, mods\n"
+        "assert len(mods) >= 44, mods\n"
+        "assert {'sdrreceiver_tpu_torch.dist.' + m for m in ('halo', 'mesh', 'multihost', "
+        "'sharded')} <= set(mods), mods\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'sdrreceiver_tpu.'))]\n"
         "print(len(mods), bad)\n"
         "sys.exit(1 if bad else 0)\n"
