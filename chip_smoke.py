@@ -52,20 +52,22 @@ its result and failing the script (non-zero exit) if it fails:
      meshes of four shards of one card (and of four cards where there
      are), at blocks 1,536,000 and 384,000, and the IQ plan on 2x2, 3 blocks
      each against one device (audio, IQ bytes, taps, exported state); the
-     per-shard mix-cascade launches; each per-shard site against its plain
-     version; the sharded step beside the one-device step
+     per-shard mix-cascade launches; each per-shard site of every mesh
+     against its plain version; the sharded step beside the one-device step
  16. the 66-channel, 3-group plan (tests/test_dist.py, BASELINE config 5)
      at its block of 384,000 on a 2x4 mesh against one device
  17. ``process-file --mesh 2x1`` on the alt-rate recording against phase 6
  18. two ``process-file`` processes on the card joined on gloo: the
      groups partition (union bit-equal to one process, no topic twice),
      ``--partition global --mesh 2x1`` (each process writes its own topics,
-     union within 1 LSB); three processes for two groups (one exits 1)
+     union within 1 LSB); each process's kernels launched once a block;
+     three processes for two groups (one exits 1)
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  ``--mesh-only`` runs phases 1, 2 and 15
-alone (for a machine with four cards, where phase 15 adds meshes over four
-distinct cards).
+Phases 15-17 hold every per-shard mix-cascade site of every sharded
+receiver they build against its plain version; phase 18's processes run
+the CLI through ``chip_smoke.py --cli ARGS``, which reports their launch
+counts.  The line before the last is a JSON summary of the kernels; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -474,8 +476,9 @@ def kernel_vs_plain_dc(dev, t_len: int, kind: str, rng, reps: int, card: str):
 
 
 def path_launches(rx) -> dict[str, int]:
-    """Launch counts of every kernel wrapper on ``rx``'s path."""
-    out = {"dc_ingest": rx.dc_ingest.launches} if rx.plan.dc_correct else {}
+    """Launch counts of every kernel wrapper on ``rx``'s path (under a mesh
+    the DC runs through the halo composition, not the DC kernel)."""
+    out = {"dc_ingest": rx.dc_ingest.launches} if rx.plan.dc_correct and rx.mesh is None else {}
     out.update({f"mix_cascade {k}": mc.launches for k, (mc, _) in rx.mix_cascades().items()})
     return out
 
@@ -1165,6 +1168,36 @@ def state_diff(ours: dict, ref: dict, what: str) -> float:
     return worst
 
 
+def sites_vs_plain(rx, what: str, card: str = "", reps: int = 0) -> dict:
+    """Each mix-cascade site of ``rx`` against its plain version on the
+    same card inputs (uniform +-128 at the site's shape, on the site's
+    device); fails above 2e-3 (expected 0: kernel and plain version agree
+    bit for bit).  With ``reps``, the kernel's and the plain version's
+    times in turns too, summed over the sites.  Call it after the main
+    path's launch counts are read: these launches are not the path's."""
+    out = {"err": 0.0, "ms": 0.0, "plain_ms": 0.0}
+    rng = np.random.default_rng(16)
+    for site, (mc, t_len) in rx.mix_cascades().items():
+        d = mc.taps.device
+        xr = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=d)
+        xi = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=d)
+        ph = torch.tensor(rng.integers(0, mc.fs, mc.channels), device=d)
+        (yr_k, yi_k), (yr_p, yi_p) = mc(ph, xr, xi), mc.plain(ph, xr, xi)
+        err = max((yr_k - yr_p).abs().max().item(), (yi_k - yi_p).abs().max().item())
+        out["err"] = max(out["err"], err)
+        timing = ""
+        if reps:
+            p_ms, k_ms = in_turns(lambda: mc.plain(ph, xr, xi), lambda: mc(ph, xr, xi), reps)
+            out["ms"] += k_ms
+            out["plain_ms"] += p_ms
+            timing = f"; kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms {card}"
+        print(f"kernel mix_cascade {site} ({what}): C={mc.channels} depths={mc.depths} "
+              f"T={t_len} on {d} max_abs_err={err:.3e} (limit 2e-3, expected 0){timing}")
+        if not err <= 2e-3:
+            fail(f"{what}: mix_cascade {site} disagrees with its plain version")
+    return out
+
+
 def phase_mesh(dev, card: str, reps: int) -> dict:
     """15. The sharded receiver: the flagship on 4x1, 2x2 and 1x4 meshes
     (four shards of one card, and four cards where there are) at blocks
@@ -1204,26 +1237,13 @@ def phase_mesh(dev, card: str, reps: int) -> dict:
                     fail(f"{what}: the per-shard kernels did not run once a step")
                 outputs_diff(got, ref, f"{what} vs one device")
                 state_diff(state, ref_state, what)
-                if lname == layouts[0][0] and shape == (4, 1) and block == BLOCK:
-                    out["launches"] = sum(launches.values())
-                    out["sites"] = sorted(sites)
-                    out["shard_t"] = sites["shard0/front"][1]
-                    for site, (mc, t_len) in sites.items():
-                        rng = np.random.default_rng(16)
-                        xr = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
-                        xi = torch.tensor(rng.uniform(-128, 128, (1, t_len)).astype(np.float32), device=dev)
-                        ph = torch.tensor(rng.integers(0, mc.fs, mc.channels), device=dev)
-                        (yr_k, yi_k), (yr_p, yi_p) = mc(ph, xr, xi), mc.plain(ph, xr, xi)
-                        err = max((yr_k - yr_p).abs().max().item(), (yi_k - yi_p).abs().max().item())
-                        p_ms, k_ms = in_turns(lambda: mc.plain(ph, xr, xi), lambda: mc(ph, xr, xi), reps)
-                        out["err"] = max(out["err"], err)
-                        out["ms"] += k_ms
-                        out["plain_ms"] += p_ms
-                        print(f"kernel mix_cascade {site} (flagship 4x1): C={mc.channels} "
-                              f"depths={mc.depths} T={t_len} max_abs_err={err:.3e} (limit 2e-3, "
-                              f"expected 0); kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms {card}")
-                        if not err <= 2e-3:
-                            fail(f"per-shard mix_cascade {site} disagrees with its plain version")
+                timed = lname == layouts[0][0] and shape == (4, 1) and block == BLOCK
+                vs = sites_vs_plain(rx, what, card, reps if timed else 0)
+                out["err"] = max(out["err"], vs["err"])
+                if timed:
+                    out.update(launches=sum(launches.values()), sites=sorted(sites),
+                               shard_t=sites["shard0/front"][1], ms=vs["ms"],
+                               plain_ms=vs["plain_ms"])
                 if name == "flagship":
                     st = {"s": rx.init_state(), "t": single.init_state(), "i": 0}
 
@@ -1240,9 +1260,10 @@ def phase_mesh(dev, card: str, reps: int) -> dict:
     return out
 
 
-def phase_cband(dev, card: str) -> None:
+def phase_cband(dev, card: str) -> float:
     """16. The 66-channel, 3-group plan at its own block of 384,000 on a
-    2x4 mesh, against one device."""
+    2x4 mesh, against one device; its per-shard sites against their plain
+    version (the worst error)."""
     from sdrreceiver_tpu_torch.dist import ShardedReceiver, local_devices, make_mesh
     from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
     from sdrreceiver_tpu_torch.graph.config import parse_ini_text
@@ -1269,6 +1290,7 @@ def phase_cband(dev, card: str) -> None:
         fail("cband: the per-shard kernels did not run once a step")
     outputs_diff(got, ref, f"{what} vs one device")
     state_diff(state, ref_state, "cband 2x4")
+    return sites_vs_plain(rx, "cband 2x4")["err"]
 
 
 def phase_alt_mesh(alt: dict) -> dict:
@@ -1285,14 +1307,27 @@ def phase_alt_mesh(alt: dict) -> dict:
     if len(launches) != 2 or any(n != summary["blocks"] for n in launches.values()):
         fail("alt-rate --mesh 2x1: the per-shard kernels did not run once a block")
     audio_diff(read_audio(d / "m"), read_audio(d / "k"), "alt-rate --mesh 2x1 vs one device")
-    return {"launches": launches, "summary": summary}
+    return {"launches": launches, "summary": summary,
+            "err": sites_vs_plain(rx, "alt-rate --mesh 2x1")["err"]}
+
+
+def cli_child(argv: list[str]) -> int:
+    """``chip_smoke.py --cli ARGS``: the port's CLI in this process, as
+    phase 18 starts its processes; after the CLI's own output, a last line
+    with the launch counts of every receiver the CLI built."""
+    from sdrreceiver_tpu_torch.cli.main import main as cli_main
+
+    with receivers_built() as built:
+        rc = cli_main(argv)
+    print(json.dumps({"launches": [path_launches(rx) for rx in built]}))
+    return rc
 
 
 def processes(argvs: list[list], timeout: float = 300.0) -> list[tuple[int, str, str]]:
-    """Run the port's CLI in one process per argv, all at once; (exit code,
-    stdout, stderr) of each."""
+    """Run the port's CLI (through :func:`cli_child`) in one process per
+    argv, all at once; (exit code, stdout, stderr) of each."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen([sys.executable, "-m", "sdrreceiver_tpu_torch", *map(str, a)],
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--cli", *map(str, a)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
                               env=env, cwd=str(REPO)) for a in argvs]
     try:
@@ -1319,12 +1354,26 @@ def phase_multihost(card: str) -> None:
                           "--num-processes", n, "--process-id", i, *extra] for i in range(n)])
         return res, time.perf_counter() - t0
 
+    def ran(res, what: str) -> list[dict]:
+        """Each process's JSON summary; fails unless it exited 0 and every
+        kernel wrapper on its path launched once a block."""
+        out = []
+        for rc, so, se in res:
+            if rc:
+                fail(f"{what}: a process exited {rc}: {se[-2000:]}")
+            *_, summary, last = so.strip().splitlines()
+            summary = json.loads(summary)
+            (launches,) = json.loads(last)["launches"]
+            print(f"{what}: process {summary['multihost']['process_id']} launches {launches} "
+                  f"over {summary['blocks']} blocks")
+            if not launches or any(n != summary["blocks"] for n in launches.values()):
+                fail(f"{what}: a process did not launch its kernels once a block")
+            out.append(summary)
+        return out
+
     res, secs = fleet("mg", 2)
-    for rc, so, se in res:
-        if rc:
-            fail(f"groups partition: a process exited {rc}: {se[-2000:]}")
+    mh = [s["multihost"] for s in ran(res, "groups partition")]
     parts = [read_audio(d / f"mg{i}") for i in range(2)]
-    mh = [json.loads(so.strip().splitlines()[-1])["multihost"] for _, so, _ in res]
     same = all(np.array_equal(v, single[k]) for p in parts for k, v in p.items())
     print(f"groups partition, 2 processes on one card: groups {[m['local_groups'] for m in mh]}, "
           f"topics {[sorted(p) for p in parts]}; union bit-equal to one process: {same} "
@@ -1333,11 +1382,8 @@ def phase_multihost(card: str) -> None:
         fail("groups partition: the union is not the single-process files")
 
     res, secs = fleet("mw", 2, "--partition", "global", "--mesh", "2x1")
-    for rc, so, se in res:
-        if rc:
-            fail(f"global partition: a process exited {rc}: {se[-2000:]}")
+    mh = [s["multihost"] for s in ran(res, "global partition")]
     parts = [read_audio(d / f"mw{i}") for i in range(2)]
-    mh = [json.loads(so.strip().splitlines()[-1])["multihost"] for _, so, _ in res]
     print(f"global partition --mesh 2x1, 2 processes on one card: topics "
           f"{[sorted(p) for p in parts]} ({secs:.1f} s for both, start-up included) {card}")
     for p, m in zip(parts, mh):
@@ -1386,16 +1432,6 @@ def main() -> None:
     for line in build.ptxas_report().splitlines():
         if line.strip():
             print("  " + line.strip())
-    if "--mesh-only" in sys.argv[1:]:
-        # phase 15 alone: the call to make on a machine with four cards
-        mesh = phase_mesh(dev, card, 20)
-        print(json.dumps({"mesh": {f"{k[0]} {k[1]} {k[2][0]}x{k[2][1]}": v
-                                   for k, v in mesh.items() if isinstance(k, tuple)}}))
-        print(smi)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
-        return
 
     plan = build_plan(benchmark_config())
     rx = CompiledReceiver(plan, BLOCK, device=dev)
@@ -1559,8 +1595,7 @@ def main() -> None:
 
     # ---- 15-18. the sharded receiver and the two multi-process partitions ----
     mesh = phase_mesh(dev, card, reps)
-    phase_cband(dev, card)
-    phase_alt_mesh(alt)
+    shard_err = max(mesh["err"], phase_cband(dev, card), phase_alt_mesh(alt)["err"])
     phase_multihost(card)
 
     kernels = [
@@ -1618,11 +1653,12 @@ def main() -> None:
          **timing_keys(devt, [f"mix_cascade flagship block {LIVE_BLOCK} {k}"
                               for k in live["sites"]])},
         {"name": f"mix_cascade (per-shard merged front, flagship 4x1 mesh on one card, "
-                 f"block {BLOCK}: {len(mesh['sites'])} sites of T={mesh['shard_t']})",
+                 f"block {BLOCK}: {len(mesh['sites'])} sites of T={mesh['shard_t']}; "
+                 f"max_abs_err over every per-shard site of phases 15-17)",
          "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
          "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
          "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
-         "launches": mesh["launches"], "max_abs_err": mesh["err"],
+         "launches": mesh["launches"], "max_abs_err": shard_err,
          "ms": mesh["ms"], "plain_ms": mesh["plain_ms"],
          **timing_keys(devt, [f"mix_cascade flagship mesh 4x1 block {BLOCK} {k}"
                               for k in mesh["sites"]])},
@@ -1635,4 +1671,6 @@ def main() -> None:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli"]:
+        sys.exit(cli_child(sys.argv[2:]))
     main()

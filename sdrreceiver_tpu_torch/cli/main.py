@@ -48,7 +48,9 @@ def _mesh_shape(arg: str, what: str) -> tuple[int, int]:
     try:
         n_time, n_chan = (int(v) for v in arg.lower().split("x"))
     except ValueError:
-        raise SystemExit(f"--mesh wants TxC{what}, got {arg!r}") from None
+        n_time = n_chan = 0
+    if n_time < 1 or n_chan < 1:
+        raise SystemExit(f"--mesh wants TxC{what}, got {arg!r}")
     return n_time, n_chan
 
 

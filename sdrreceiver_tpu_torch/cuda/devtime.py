@@ -7,17 +7,17 @@ their bounds (needs a CUDA device).
 
 The first form times the kernels of the ``sdrreceiver_tpu_torch`` package
 found under ``--root`` (default: this file's checkout), with the sharded
-receiver's per-shard sites unless ``--no-mesh``, and the flagship
-``step_u8`` at block 1,536,000, and prints one JSON line.  ``--ab`` runs
-that form in turns, OTHER_ROOT, this checkout, this checkout, OTHER_ROOT,
-each in a process of its own on the same card, and prints both versions'
-times per case: the way to compare a change with its parent (unpack the
-parent with ``git archive`` into a gitignored directory).  Only the
-package's public wrappers are used (``DcIngest``,
+receiver's per-shard sites where that package has ``dist/``, and the
+flagship ``step_u8`` at block 1,536,000, and prints one JSON line.  ``--ab``
+runs that form in turns, OTHER_ROOT, this checkout, this checkout,
+OTHER_ROOT, each in a process of its own on the same card, and prints both
+versions' times for each case both have: the way to compare a change with
+its parent (unpack the parent with ``git archive`` into a gitignored
+directory).  Only the package's public wrappers are used (``DcIngest``,
 ``CompiledReceiver.mix_cascades``), so any version of the port can be
 timed.  ``--steps`` profiles whole flagship steps instead, one device
 against 4x1, 2x2 and 1x4 meshes of the card: wall time, device time,
-kernels per step and the device's idle share.
+kernels per step, the device's idle share, and the rows a mesh adds.
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -76,36 +76,49 @@ def joint_bound(cases: list[dict]) -> tuple[float, str]:
     return 1e6 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def device_us(fn, calls: int) -> tuple[float, dict[str, int]]:
+def device_us(fn, calls: int, row_us: dict | None = None,
+              tries: int = 3) -> tuple[float, dict[str, int]]:
     """(µs of device time per call, {CUDA row name: rows per call}) over
-    ``calls`` calls of ``fn`` after 5 warm-up calls."""
+    ``calls`` calls of ``fn`` after 5 warm-up calls; ``row_us``, when
+    given, receives each row's µs per call.
+
+    The profiler now and then loses device records (a kernel counted 44
+    times in 50 calls).  A profile in which some row is not a whole number
+    per call is taken again, up to ``tries`` times; the last one is
+    returned either way, so a caller that checks the rows still sees it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    total, rows = 0.0, {}
-    for e in prof.key_averages():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", None)
-        if t is None:
-            t = e.self_cuda_time_total
-        total += t
-        rows[e.key] = e.count / calls
-    return total / calls, rows
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        total, counts, times = 0.0, {}, {}
+        for e in prof.key_averages():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", None)
+            if t is None:
+                t = e.self_cuda_time_total
+            total += t
+            counts[e.key] = e.count
+            times[e.key] = t / calls
+        if all(n % calls == 0 for n in counts.values()):
+            break
+        print(f"devtime: profile {attempt + 1} lost device records {counts}", file=sys.stderr)
+    if row_us is not None:
+        row_us.update(times)
+    return total / calls, {k: n / calls for k, n in counts.items()}
 
 
-def measure(calls: int = 50, seed: int = 0, step: bool = True, mesh: bool = True) -> list[dict]:
+def measure(calls: int = 50, seed: int = 0, step: bool = True) -> list[dict]:
     """Every kernel case: its device time, kernel rows per call and bound;
-    with ``mesh``, the sharded receiver's per-shard sites too (a checkout
-    without ``dist/`` passes False); with ``step``, the flagship step's wall
-    time last."""
+    the sharded receiver's per-shard sites too where the package has
+    ``dist/``; with ``step``, the flagship step's wall time last."""
     import numpy as np
     import torch
 
@@ -132,7 +145,7 @@ def measure(calls: int = 50, seed: int = 0, step: bool = True, mesh: bool = True
         cfg = (flagship.benchmark_config if plan_name == "flagship" else flagship.altrate_config)()
         receivers.append((f"{plan_name} block {block}",
                           CompiledReceiver(build_plan(cfg), block, device=dev)))
-    if mesh:
+    if (pathlib.Path(flagship.__file__).parent / "dist").is_dir():
         from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
 
         for plan_name, block, (n_time, n_chan) in MESH_PLANS:
@@ -186,9 +199,12 @@ def step_case(block: int, seed: int, steps: int = 20) -> dict:
 def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
     """Where a step's time goes, one device against a mesh on the same card:
     the flagship ``step_u8`` at 1,536,000 and 384,000 on one device and on
-    4x1, 2x2 and 1x4 meshes of four shards of the card.  Per step: wall ms
+    4x1, 2x2 and 1x4 meshes of four shards of the card, and on one device
+    with its buckets on the stateful path (a mesh's bucket path, without
+    the mesh).  Per step: wall ms
     (CUDA events around ``calls`` steps), device µs and CUDA rows (kernels
-    and memsets, ``torch.profiler``), and the device's idle share."""
+    and memsets, ``torch.profiler``), the device's idle share, and the µs
+    and count of each row."""
     import numpy as np
     import torch
 
@@ -204,6 +220,10 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
         raw = torch.tensor(np.random.default_rng(seed).integers(100, 156, (2, 2 * block),
                                                                  dtype=np.uint8), device=dev)
         rxs = [("one device", CompiledReceiver(plan, block, device=dev))]
+        # one device with its buckets on the stateful path, as under a mesh
+        stateful = CompiledReceiver(plan, block, device=dev)
+        stateful._bucket_mc = {}
+        rxs.append(("one device, stateful buckets", stateful))
         rxs += [(f"mesh {t}x{c}", ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block))
                 for t, c in ((4, 1), (2, 2), (1, 4))]
         for name, rx in rxs:
@@ -213,7 +233,8 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
                 st["i"] ^= 1
                 st["s"], _ = rx.step_u8(st["s"], raw[st["i"]])
 
-            us, rows = device_us(step, calls)
+            row_us: dict[str, float] = {}
+            us, rows = device_us(step, calls, row_us)
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             for _ in range(calls):
@@ -223,7 +244,28 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
             wall = start.elapsed_time(end) / calls
             out.append({"case": f"flagship block {block} {name}", "wall_ms": wall,
                         "device_us": us, "rows_per_step": sum(rows.values()),
-                        "idle_share": 1.0 - us / 1e3 / wall})
+                        "idle_share": 1.0 - us / 1e3 / wall,
+                        "rows": {k: [row_us[k], n] for k, n in rows.items()}})
+    return out
+
+
+def mesh_extra(steps: list[dict], top: int = 8) -> dict[str, list]:
+    """For each mesh case of :func:`step_profiles` (and the one-device step
+    with stateful buckets), the rows whose device time grew most over the
+    one-device step at the same block: ``[row, µs more, rows more]`` per
+    step."""
+    out = {}
+    for c in steps:
+        block, _, name = c["case"].partition(" mesh ")
+        if not name:
+            block, _, name = c["case"].partition(" one device, ")
+        if not name:
+            continue
+        one = next(o["rows"] for o in steps if o["case"] == f"{block} one device")
+        keys = set(c["rows"]) | set(one)
+        diff = [[k, c["rows"].get(k, [0, 0])[0] - one.get(k, [0, 0])[0],
+                 c["rows"].get(k, [0, 0])[1] - one.get(k, [0, 0])[1]] for k in keys]
+        out[c["case"]] = sorted(diff, key=lambda d: -d[1])[:top]
     return out
 
 
@@ -238,29 +280,31 @@ def ab(other: pathlib.Path, here: pathlib.Path, calls: int) -> None:
     """OTHER, HERE, HERE, OTHER in processes of their own; both versions'
     times per case, and the mean of each pair."""
     runs = []
-    # the per-shard cases only where both checkouts have the sharded receiver
-    no_mesh = [] if (other / "sdrreceiver_tpu_torch" / "dist").exists() else ["--no-mesh"]
     for name, root in (("other", other), ("here", here), ("here", here), ("other", other)):
         res = subprocess.run(
             [sys.executable, str(pathlib.Path(__file__).resolve()), "--root", str(root),
-             "--calls", str(calls), *no_mesh],
+             "--calls", str(calls)],
             capture_output=True, text=True, check=False,
         )
         if res.returncode:
             sys.exit(f"{name} ({root}) failed:\n{res.stdout[-4000:]}\n{res.stderr[-4000:]}")
-        runs.append((name, json.loads(res.stdout.strip().splitlines()[-1])))
+        cases = json.loads(res.stdout.strip().splitlines()[-1])["cases"]
+        runs.append({(c["kernel"], c["case"]): c for c in cases})
     print(f"card: {card()}")
     rows = []
-    for i, case in enumerate(runs[0][1]["cases"]):
+    # the cases both versions have (the per-shard sites need dist/)
+    for key, case in runs[0].items():
+        if key not in runs[1]:
+            continue
         if "step_ms" in case:
-            t = [r["cases"][i]["step_ms"] for _, r in runs]
+            t = [r[key]["step_ms"] for r in runs]
             rows.append({"kernel": case["kernel"], "case": case["case"],
                          "other_ms": [t[0], t[3]], "here_ms": [t[1], t[2]]})
             print(f"{case['kernel']:12s} {case['case']:40s} other {t[0]:8.3f} / {t[3]:8.3f} ms, "
                   f"here {t[1]:8.3f} / {t[2]:8.3f} ms (wall time per step)")
             continue
-        t = [r["cases"][i]["device_us"] for _, r in runs]
-        here_case = runs[1][1]["cases"][i]
+        t = [r[key]["device_us"] for r in runs]
+        here_case = runs[1][key]
         rows.append({"kernel": case["kernel"], "case": case["case"],
                      "other_us": [t[0], t[3]], "here_us": [t[1], t[2]],
                      "other_rows": case["rows_per_call"],
@@ -280,8 +324,6 @@ def main(argv=None) -> None:
     ap.add_argument("--calls", type=int, default=50)
     ap.add_argument("--ab", type=pathlib.Path, default=None,
                     help="another checkout's root, timed in turns with this one")
-    ap.add_argument("--no-mesh", action="store_true",
-                    help="leave out the sharded receiver's per-shard sites")
     ap.add_argument("--steps", action="store_true",
                     help="profile whole steps instead: one device against meshes on the card")
     args = ap.parse_args(argv)
@@ -300,9 +342,16 @@ def main(argv=None) -> None:
         for c in steps:
             print(f"{c['case']:36s} wall {c['wall_ms']:8.3f} ms, device {c['device_us']:8.1f} us "
                   f"over {c['rows_per_step']:.0f} CUDA rows, idle {c['idle_share']:.3f}")
-        print(json.dumps({"card": card(), "steps": steps}))
+        extra = mesh_extra(steps)
+        for case, diff in extra.items():
+            print(f"{case}: most device time added over one device:")
+            for k, dus, dn in diff:
+                print(f"    {dus:+9.1f} us {dn:+6.0f} rows  {k[:90]}")
+        for c in steps:
+            del c["rows"]
+        print(json.dumps({"card": card(), "steps": steps, "mesh_extra": extra}))
         return
-    cases = measure(args.calls, mesh=not args.no_mesh)
+    cases = measure(args.calls)
     print(json.dumps({"root": str(args.root), "card": card(), "cases": cases}))
 
 

@@ -32,10 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..cuda.frontend import MixCascade, phase_back, warmup_len
 from ..graph.compiler import CompiledReceiver, _is_planar_pair
 from ..graph.plan import ReceiverPlan
-from ..kernels import halfband, ingest, nco
+from ..kernels import ingest
 from . import halo
 from .mesh import CHAN_AXIS, TIME_AXIS, Mesh, local_devices, make_mesh
 
@@ -48,24 +47,15 @@ def _chan_dim(key: str) -> int:
     return 1 if _is_planar_pair(key) else 0
 
 
-def _map_state(fn, tree, prefix: str):
-    """``fn(path, leaf)`` over a nested dict/list state."""
-    if isinstance(tree, dict):
-        return {k: _map_state(fn, v, f"{prefix}{k}/") for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_map_state(fn, v, f"{prefix}{i}/") for i, v in enumerate(tree)]
-    return fn(prefix[:-1], tree)
-
-
-def _join_states(trees: list, prefix: str, device: torch.device):
-    """Channel-range states -> one state on ``device``."""
+def _map_states(fn, trees: list, prefix: str):
+    """``fn(path, leaves)`` over nested dict/list states of one structure,
+    ``leaves`` holding each tree's leaf at ``path``."""
     t0 = trees[0]
     if isinstance(t0, dict):
-        return {k: _join_states([t[k] for t in trees], f"{prefix}{k}/", device) for k in t0}
+        return {k: _map_states(fn, [t[k] for t in trees], f"{prefix}{k}/") for k in t0}
     if isinstance(t0, list):
-        return [_join_states([t[i] for t in trees], f"{prefix}{i}/", device)
-                for i in range(len(t0))]
-    return torch.cat([t.to(device) for t in trees], dim=_chan_dim(prefix[:-1]))
+        return [_map_states(fn, [t[i] for t in trees], f"{prefix}{i}/") for i in range(len(t0))]
+    return fn(prefix[:-1], trees)
 
 
 class _ChanSlice:
@@ -141,55 +131,17 @@ class ShardedReceiver(CompiledReceiver):
                         parts.append((lo, hi, sub, _ChanSlice(self, bk, lo, hi, dev)))
                     self._chan_parts[bk] = parts
 
-    # ------------------------------------------------------------ kernels
-    def _build_kernels(self) -> None:
-        """Per-shard mix-cascade kernels for the group fronts; no merged
-        single-device front and no bucket kernel under a mesh."""
-        self._merged = None
-        self._group_mc = {}
-        self._bucket_mc = {}
-        self._shard_fronts: list[tuple[list[MixCascade], int, list[int]]] = []
-        if not self.xtail_len():
-            return
-        t_local = self.block // self.n_time
-        cands = [g for g in self.plan.groups if not g.direct and g.stages >= 1]
-
-        def warm(gs) -> int | None:
-            p = max(warmup_len(g.stages) for g in gs)
-            return p if p <= t_local and p <= self.xtail_len() else None
-
-        sets = [cands] if len(cands) >= 2 and warm(cands) else [[g] for g in cands]
-        for gs in sets:
-            p = warm(gs)
-            if p is None:
-                continue
-            kerns = [
-                MixCascade([g.stages for g in gs], self.plan.fs,
-                           [g.mixer_freq for g in gs], self.mesh.devices[i][0])
-                for i in self._rows
-            ]
-            self._shard_fronts.append((kerns, p, [g.index for g in gs]))
-
-    def mix_cascades(self) -> dict[str, tuple[MixCascade, int]]:
-        """Every per-shard kernel this process launches, by site
-        ("shard<i>/front" for the merged front, else "shard<i>/g<k>"), with
-        its input length (shard plus warm-up)."""
-        t_local = self.block // self.n_time
-        sites = {}
-        for kerns, p, gidxs in self._shard_fronts:
-            name = "front" if len(gidxs) >= 2 else f"g{gidxs[0]}"
-            for i, mc in zip(self._rows, kerns):
-                sites[f"shard{i}/{name}"] = (mc, t_local + p)
-        return sites
-
     # ------------------------------------------------------- time shards
+    def _shard_devices(self) -> list[tuple[int, torch.device]]:
+        return [(i, self.mesh.devices[i][0]) for i in self._rows]
+
     def _ingest(self, state: dict, raw: torch.Tensor):
         """This process's time shards of ``raw`` on their devices, planar,
         with DC removed by the halo composition."""
         t_local = self.block // self.n_time
         xs = []
-        for i in self._rows:
-            r = raw[2 * i * t_local:2 * (i + 1) * t_local].to(self.mesh.devices[i][0])
+        for i, dev in self._shard_devices():
+            r = raw[2 * i * t_local:2 * (i + 1) * t_local].to(dev)
             xs.append(ingest.u8_iq_to_planar(r) if r.dtype == torch.uint8
                       else ingest.f32_pairs_to_planar(r))
         if not self.plan.dc_correct:
@@ -200,8 +152,17 @@ class ShardedReceiver(CompiledReceiver):
         t_local = self.block // self.n_time
         w = min(n, t_local) if n else t_local
         k = min(-(-n // t_local), self.n_time) if n else self.n_time
-        tails = halo.gather([torch.stack(x)[:, -w:] for x in xs], self.device, self._span)
+        tails = halo.gather([torch.stack((xr[-w:], xi[-w:])) for xr, xi in xs],
+                            self.device, self._span)
         return torch.cat(tails[-k:], dim=-1)[:, -n:] if n else torch.cat(tails, dim=-1)
+
+    def _left_halos(self, state: dict, xs, p: int) -> list[torch.Tensor]:
+        """The left neighbour's last ``p`` inputs; global shard 0's from the
+        carried xtail."""
+        lefts = halo.right_halo([torch.stack((xr[-p:], xi[-p:])) for xr, xi in xs], p, self._span)
+        if self._rows[0] == 0:
+            lefts[0] = state["xtail"][:, -p:].to(lefts[0].device)
+        return lefts
 
     def _gather_time(self, parts) -> tuple[torch.Tensor, torch.Tensor]:
         """Per-shard planar ``[C, t]`` pairs -> the whole block on the home
@@ -209,61 +170,11 @@ class ShardedReceiver(CompiledReceiver):
         z = torch.cat(halo.gather([torch.stack(p) for p in parts], self.device, self._span), dim=-1)
         return z[0], z[1]
 
-    def _front(self, state: dict, xs):
-        plan = self.plan
-        fs = plan.fs
-        home = self.device
-        span = self._span
+    def _stateful_group(self, gs: dict, xs):
         t_local = self.block // self.n_time
-        lo = self._rows[0]
-        per_shard: dict[int, list] = {}
-        for kerns, p, gidxs in self._shard_fronts:
-            lefts = halo.right_halo([torch.stack(x) for x in xs], p, span)
-            if lo == 0:
-                lefts[0] = state["xtail"][:, -p:].to(lefts[0].device)
-            phases = torch.cat([state[f"g{i}"]["nco"]["phase"] for i in gidxs])
-            f_mod = kerns[0].f_mod.to(home)
-            step = f_mod * t_local % fs
-            for k, (mc, x, left) in enumerate(zip(kerns, xs, lefts)):
-                ph = phase_back((phases + (lo + k) * step % fs) % fs, f_mod, fs, p)
-                yr, yi = self._run(
-                    mc, ph.to(x[0].device),
-                    torch.cat([left[0], x[0]])[None], torch.cat([left[1], x[1]])[None],
-                )
-                for gi, d, zr, zi in zip(gidxs, mc.depths, mc.split(yr, t_local + p),
-                                         mc.split(yi, t_local + p)):
-                    per_shard.setdefault(gi, []).append((zr[p >> d:][None], zi[p >> d:][None]))
-        fronted = {gi for _, _, gidxs in self._shard_fronts for gi in gidxs}
-        tail = None
-        if fronted:
-            # the block's tail, from the last shard: the new cascade
-            # histories are re-derived from it (exact by washout)
-            w = max(warmup_len(g.stages) for g in plan.groups if g.index in fronted)
-            tail = halo._bcast_from_last([torch.stack(x)[:, -w:] for x in xs], home, span)
-        new_state: dict = {}
-        for g in plan.groups:
-            gk = f"g{g.index}"
-            gs = state.get(gk, {})
-            ngs: dict = {}
-            if g.direct:
-                per_shard[g.index] = [(x[0][None], x[1][None]) for x in xs]
-            elif g.index in fronted:
-                ngs["nco"] = dict(gs["nco"])
-                ngs["nco"]["phase"] = nco.advance_per_block(gs["nco"], fs, self.block)
-                w = warmup_len(g.stages)
-                tst = dict(gs["nco"])
-                tst["phase"] = nco.phase_minus(ngs["nco"], fs, w)
-                _, ztail = nco.mix_block_planar(tst, (tail[0, -w:], tail[1, -w:]), fs)
-                ngs["cascade"] = halfband.cascade_tails_from_tail(ztail, self._hb1, g.stages)
-            else:
-                # mix-only groups, and shards shorter than the warm-up
-                ngs["nco"], z = halo.timeshard_mix_local(gs["nco"], xs, fs, t_local, span)
-                ngs["cascade"], per_shard[g.index] = halo.timeshard_cascade_local(
-                    gs["cascade"], z, self._hb1, span
-                )
-            new_state[gk] = ngs
-        zs = {f"g{gi}": self._gather_time(parts) for gi, parts in per_shard.items()}
-        return new_state, zs
+        nco_state, zs = halo.timeshard_mix_local(gs["nco"], xs, self.plan.fs, t_local, self._span)
+        hists, zs = halo.timeshard_cascade_local(gs["cascade"], zs, self._hb1, self._span)
+        return nco_state, hists, zs
 
     # ------------------------------------------------------ chan ranges
     def _bucket_step(self, g, bi: int, bs: dict, z, outputs: dict, state: dict) -> dict:
@@ -276,8 +187,9 @@ class ShardedReceiver(CompiledReceiver):
             sub_g = dataclasses.replace(
                 g, buckets=tuple(sub if k == bi else b for k, b in enumerate(g.buckets))
             )
-            sub_bs = _map_state(
-                lambda key, v: v.narrow(_chan_dim(key), lo, hi - lo).to(part.device), bs, bk + "/"
+            sub_bs = _map_states(
+                lambda key, v: v[0].narrow(_chan_dim(key), lo, hi - lo).to(part.device),
+                [bs], bk + "/",
             )
             outs: dict = {}
             new_parts.append(part._bucket_step(
@@ -286,4 +198,7 @@ class ShardedReceiver(CompiledReceiver):
             pcm.append(outs.pop(f"pcm/{bk}").to(self.device))
             outputs.update({k: v.to(self.device) for k, v in outs.items()})
         outputs[f"pcm/{bk}"] = torch.cat(pcm)
-        return _join_states(new_parts, bk + "/", self.device)
+        return _map_states(
+            lambda key, vs: torch.cat([v.to(self.device) for v in vs], dim=_chan_dim(key)),
+            new_parts, bk + "/",
+        )

@@ -22,7 +22,10 @@ previous block's group output re-derived from it for buckets) and the
 warm-up outputs dropped; the canonical per-stage cascade histories are then
 re-derived from the block's tail.  So the state stays in the JAX package's
 canonical layout, and :meth:`export_state` / :meth:`import_state` cross
-checkpoints both ways.
+checkpoints both ways.  The group fronts take the block as a list of time
+shards, one here; ``dist.ShardedReceiver`` supplies several, with their
+halos and gathers (:meth:`_left_halos`, :meth:`_gather_time`,
+:meth:`_stateful_group`, :meth:`_input_tail`).
 
 A block shorter than the kernels' warm-up has no carried ``xtail`` (the
 JAX package's rule, so both packages' states keep one layout): there every
@@ -143,6 +146,11 @@ class CompiledReceiver:
     ``ossfft_min_taps`` taps run through the overlap-save FFT engine
     (``kernels/ossfft``; None disables it)."""
 
+    # one device computes the block as one time shard; dist.ShardedReceiver
+    # sets its mesh and its time-shard count
+    mesh = None
+    n_time = 1
+
     def __init__(
         self,
         plan: ReceiverPlan,
@@ -216,49 +224,61 @@ class CompiledReceiver:
                 else:
                     self._c[f"{bk}/audio"] = fir.prepare_taps(at, None, dev)
 
+    def _shard_devices(self) -> list[tuple[int, torch.device]]:
+        """(index, device) of each time shard of the block this process
+        computes: on one device, the whole block."""
+        return [(0, self.device)]
+
     def _build_kernels(self) -> None:
-        """The mix-cascade kernel wrappers of the group fronts and buckets.
-        The stateless kernels need the carried xtail to warm up from;
-        without one every cascade runs the stateful path."""
-        dev = self.device
+        """The mix-cascade kernel wrappers: the group fronts, one wrapper
+        per time shard, and on one device the buckets.  The stateless
+        kernels warm up from the carried xtail (or the left neighbour's
+        shard); without one, and for a shard shorter than the warm-up, the
+        stateful path runs."""
         plan = self.plan
-        stateless = bool(self.xtail_len())
-        cands = [g for g in plan.groups if not g.direct and g.stages >= 1] if stateless else []
+        tail = self.xtail_len()
+        t_local = self.block // self.n_time
+        cands = [g for g in plan.groups if not g.direct and g.stages >= 1] if tail else []
+
+        def warmup(gs) -> int | None:
+            p = max(warmup_len(g.stages) for g in gs)
+            return p if p <= min(t_local, tail) else None
+
         # one kernel call for every group front when two or more cascade:
         # they all mix the SAME full-rate stream, read once per tile
-        self._merged = None
-        self._group_mc: dict[int, MixCascade] = {}
-        if len(cands) >= 2:
-            self._merged = (
-                MixCascade(
-                    [g.stages for g in cands], plan.fs,
-                    [g.mixer_freq for g in cands], dev,
-                ),
-                max(warmup_len(g.stages) for g in cands),
-                [g.index for g in cands],
-            )
-        else:
-            for g in cands:
-                self._group_mc[g.index] = MixCascade(
-                    [g.stages], plan.fs, [g.mixer_freq], dev
-                )
+        sets = [cands] if len(cands) >= 2 and warmup(cands) else [[g] for g in cands]
+        # (one wrapper per shard, warm-up length, group indices)
+        self._fronts: list[tuple[list[MixCascade], int, list[int]]] = []
+        for gs in sets:
+            p = warmup(gs)
+            if p is not None:
+                self._fronts.append((
+                    [MixCascade([g.stages for g in gs], plan.fs, [g.mixer_freq for g in gs], dev)
+                     for _, dev in self._shard_devices()],
+                    p, [g.index for g in gs],
+                ))
         self._bucket_mc: dict[str, MixCascade] = {}
+        if self.mesh is not None:
+            return  # buckets run the stateful path under a mesh, as in the JAX package
         for g in plan.groups:
             for bi, b in enumerate(g.buckets):
-                if stateless and b.stages >= 1:
+                if tail and b.stages >= 1:
                     self._bucket_mc[f"g{g.index}/b{bi}"] = MixCascade(
-                        [b.stages] * b.channels, b.mix_fs(g.out_rate), b.mixer_freqs(), dev
+                        [b.stages] * b.channels, b.mix_fs(g.out_rate), b.mixer_freqs(),
+                        self.device,
                     )
 
     def mix_cascades(self) -> dict[str, tuple[MixCascade, int]]:
         """Every mix-cascade kernel wrapper this receiver launches, by site
-        ("front", "g<i>" or "g<i>/b<j>"), with the input length each call
-        gets (block plus warm-up)."""
+        ("front" for the merged group fronts, "g<i>" or "g<i>/b<j>"; under a
+        mesh "shard<i>/front" or "shard<i>/g<k>"), with the input length
+        each call gets (block or shard, plus warm-up)."""
+        t_local = self.block // self.n_time
         sites = {}
-        if self._merged is not None:
-            sites["front"] = (self._merged[0], self.block + self._merged[1])
-        for gi, mc in self._group_mc.items():
-            sites[f"g{gi}"] = (mc, self.block + warmup_len(mc.dmax))
+        for kerns, p, gidxs in self._fronts:
+            name = "front" if len(gidxs) >= 2 else f"g{gidxs[0]}"
+            for (i, _), mc in zip(self._shard_devices(), kerns):
+                sites[name if self.mesh is None else f"shard{i}/{name}"] = (mc, t_local + p)
         for g in self.plan.groups:
             for bi, b in enumerate(g.buckets):
                 mc = self._bucket_mc.get(f"g{g.index}/b{bi}")
@@ -437,28 +457,47 @@ class CompiledReceiver:
         return torch.stack([zr, zi])
 
     def _ingest(self, state: dict, raw: torch.Tensor):
-        """Interleaved ``raw`` -> (new DC mean, post-DC planar input)."""
+        """Interleaved ``raw`` -> (new DC mean, the post-DC planar input as
+        a list of time shards: one here)."""
         if self.plan.dc_correct:
-            return self._run(self.dc_ingest, state["dc"], raw)
-        if raw.dtype == torch.uint8:
-            return state["dc"], ingest.u8_iq_to_planar(raw)
-        return state["dc"], ingest.f32_pairs_to_planar(raw)
+            mean, x = self._run(self.dc_ingest, state["dc"], raw)
+        elif raw.dtype == torch.uint8:
+            mean, x = state["dc"], ingest.u8_iq_to_planar(raw)
+        else:
+            mean, x = state["dc"], ingest.f32_pairs_to_planar(raw)
+        return mean, [x]
 
-    def _input_tail(self, x, n: int | None) -> torch.Tensor:
+    def _input_tail(self, xs, n: int | None) -> torch.Tensor:
         """The last ``n`` samples (all for None) of the post-DC input as
         planar ``[2, n]``."""
-        return torch.stack([x[0][-n:], x[1][-n:]]) if n else torch.stack(x)
+        ((xr, xi),) = xs
+        return torch.stack([xr[-n:], xi[-n:]]) if n else torch.stack([xr, xi])
+
+    def _left_halos(self, state: dict, xs, p: int) -> list[torch.Tensor]:
+        """Each shard's ``p`` warm-up inputs, planar ``[2, p]``: the carried
+        xtail's last ``p`` here."""
+        return [state["xtail"][:, -p:]]
+
+    def _gather_time(self, parts) -> tuple[torch.Tensor, torch.Tensor]:
+        """Per-shard planar ``[C, t]`` pairs -> the whole block."""
+        (z,) = parts
+        return z
+
+    def _stateful_group(self, gs: dict, xs):
+        """A group's mix + half-band cascade on its carried NCO phase and
+        histories: (new NCO state, new histories, per-shard outputs)."""
+        ((xr, xi),) = xs
+        nco_state, z = nco.mix_block_planar(gs["nco"], (xr, xi), self.plan.fs)
+        hists, z = halfband.cascade_apply_planar(gs["cascade"], z, self._hb1)
+        return nco_state, hists, [z]
 
     def _step_raw(self, state: dict, raw: torch.Tensor):
-        mean, x = self._ingest(state, raw)
-        new_state, zs = self._front(state, x)
+        mean, xs = self._ingest(state, raw)
+        new_state, zs = self._front(state, xs)
         new_state["dc"] = mean
-        p = self.xtail_len()
-        if p:
-            new_state["xtail"] = self._input_tail(x, p)
         outputs: dict[str, torch.Tensor] = {}
         if "main" in self.emit_taps:
-            outputs["tap/main"] = self._input_tail(x, self.tap_samples)
+            outputs["tap/main"] = self._input_tail(xs, self.tap_samples)
         for g in self.plan.groups:
             gk = f"g{g.index}"
             zr, zi = zs[gk]
@@ -474,55 +513,42 @@ class CompiledReceiver:
                 )
         return new_state, outputs
 
-    def _front(self, state: dict, x):
-        """Every group's full-rate mix + half-band cascade on the post-DC
-        planar input ``x``.  Returns ``(partial new state, {g<i>: (zr, zi)
+    def _front(self, state: dict, xs):
+        """Every group's full-rate mix + half-band cascade on ``xs``, the
+        time shards of the post-DC planar input this process computes (one,
+        the whole block, on one device).  Each kernel call is prefixed with
+        the shard's ``p`` warm-up inputs (:meth:`_left_halos`), starts its
+        NCO ``p`` samples early and drops the first ``p >> d`` outputs.
+        Returns ``(partial new state with the new xtail, {g<i>: (zr, zi)
         [1, Tg]})``."""
         plan = self.plan
         fs = plan.fs
-        xr, xi = x
-        new_state: dict[str, Any] = {}
-        zs: dict[str, tuple[torch.Tensor, torch.Tensor]] = {}
-        merged: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
-        if self._merged is not None:
-            mc, warm, gidxs = self._merged
-            xt = state["xtail"]
+        t_local = self.block // self.n_time
+        per_shard: dict[int, list] = {}
+        for kerns, p, gidxs in self._fronts:
+            lefts = self._left_halos(state, xs, p)
             phases = torch.cat([state[f"g{i}"]["nco"]["phase"] for i in gidxs])
-            ext_r = torch.cat([xt[0, -warm:], xr])[None]
-            ext_i = torch.cat([xt[1, -warm:], xi])[None]
-            yr, yi = self._run(mc, phase_back(phases, mc.f_mod, fs, warm), ext_r, ext_i)
-            t_ext = ext_r.shape[1]
-            for gi, d, zr, zi in zip(
-                gidxs, mc.depths, mc.split(yr, t_ext), mc.split(yi, t_ext)
-            ):
-                merged[gi] = (zr[warm >> d:][None], zi[warm >> d:][None])
+            f_mod = kerns[0].f_mod.to(self.device)
+            for (i, dev), mc, (xr, xi), (lr, li) in zip(self._shard_devices(), kerns, xs, lefts):
+                # shard i's NCO starts i * t_local samples into the block
+                ph = phases if i == 0 else (phases + i * (f_mod * t_local % fs) % fs) % fs
+                yr, yi = self._run(
+                    mc, phase_back(ph, f_mod, fs, p).to(dev),
+                    torch.cat([lr, xr])[None], torch.cat([li, xi])[None],
+                )
+                for gi, d, zr, zi in zip(gidxs, mc.depths, mc.split(yr, t_local + p),
+                                         mc.split(yi, t_local + p)):
+                    per_shard.setdefault(gi, []).append((zr[p >> d:][None], zi[p >> d:][None]))
+        new_state: dict[str, Any] = {}
+        if self.xtail_len():
+            new_state["xtail"] = xt = self._input_tail(xs, self.xtail_len())
         for g in plan.groups:
             gk = f"g{g.index}"
             gs = state.get(gk, {})
             ngs: dict[str, Any] = {}
             if g.direct:
-                zs[gk] = (xr[None], xi[None])
-            elif g.index not in merged and g.index not in self._group_mc:
-                # mix-only groups, and every group at a block too short for
-                # the kernels: the stateful path on the carried histories
-                ngs["nco"], z = nco.mix_block_planar(gs["nco"], x, fs)
-                ngs["cascade"], zs[gk] = halfband.cascade_apply_planar(
-                    gs["cascade"], z, self._hb1
-                )
-            else:
-                if g.index in merged:
-                    zs[gk] = merged[g.index]
-                else:
-                    warm = warmup_len(g.stages)
-                    xt = state["xtail"]
-                    yr, yi = self._run(
-                        self._group_mc[g.index],
-                        nco.phase_minus(gs["nco"], fs, warm),
-                        torch.cat([xt[0, -warm:], xr])[None],
-                        torch.cat([xt[1, -warm:], xi])[None],
-                    )
-                    drop = warm >> g.stages
-                    zs[gk] = (yr[drop:][None], yi[drop:][None])
+                per_shard[g.index] = [(xr[None], xi[None]) for xr, xi in xs]
+            elif g.index in per_shard:
                 ngs["nco"] = dict(gs["nco"])
                 ngs["nco"]["phase"] = nco.advance_per_block(gs["nco"], fs, self.block)
                 # canonical cascade histories re-derived from the block's
@@ -530,9 +556,15 @@ class CompiledReceiver:
                 w = warmup_len(g.stages)
                 tst = dict(gs["nco"])
                 tst["phase"] = nco.phase_minus(ngs["nco"], fs, w)
-                _, ztail = nco.mix_block_planar(tst, (xr[-w:], xi[-w:]), fs)
+                _, ztail = nco.mix_block_planar(tst, (xt[0, -w:], xt[1, -w:]), fs)
                 ngs["cascade"] = halfband.cascade_tails_from_tail(ztail, self._hb1, g.stages)
+            else:
+                # mix-only groups, every group at a block too short for the
+                # kernels, and shards shorter than the warm-up: the stateful
+                # path on the carried histories
+                ngs["nco"], ngs["cascade"], per_shard[g.index] = self._stateful_group(gs, xs)
             new_state[gk] = ngs
+        zs = {f"g{gi}": self._gather_time(parts) for gi, parts in per_shard.items()}
         return new_state, zs
 
     def _prev_group_tail(self, state: dict, g, n_out: int):

@@ -279,6 +279,30 @@ def test_dist_options_exit_1(tmp_path, altrate, capsys, jax_straight, extra):
     _close(_audio(tmp_path / "x"), jax_straight)
 
 
+@pytest.mark.parametrize(
+    "mesh,partition", [("4by2", "groups"), ("0x2", "groups"), ("4by2", "global")],
+    ids=["not_txc", "zero_shards", "global_not_txc"],
+)
+def test_bad_mesh_form_exits_1_like_jax(altrate, capsys, mesh, partition):
+    """A ``--mesh`` that is not TxC exits 1 with the JAX CLI's message: the
+    JAX CLI run on the same arguments where no process group is needed,
+    else its text.  No shard count may be 0."""
+    extra = ["--mesh", mesh]
+    if partition == "global":
+        extra += ["--coordinator", f"127.0.0.1:{_free_port()}", "--partition", "global"]
+    assert _process(main, altrate / "alt.ini", altrate / "alt.u8", altrate / "bad", *extra) == 1
+    err = capsys.readouterr().err.strip().splitlines()[-1]
+    if partition == "global":
+        assert err == f"--mesh wants TxC, got {mesh!r}"
+    elif mesh == "0x2":
+        assert err == f"--mesh wants TxC (e.g. 4x2), got {mesh!r}"
+    else:
+        with pytest.raises(SystemExit) as e:
+            _process(jmain, altrate / "alt.ini", altrate / "alt.u8", altrate / "bad", *extra)
+        assert err == e.value.code
+    assert not (altrate / "bad").exists()
+
+
 def test_device_cuda_without_card_exits_1(altrate, capsys):
     """Decided inside the test: on a machine with a card there is nothing
     to show here."""

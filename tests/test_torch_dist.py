@@ -18,7 +18,6 @@ reference is computed once per module.
 import json
 import os
 import pathlib
-import socket
 import subprocess
 import sys
 
@@ -49,6 +48,7 @@ from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
 from sdrreceiver_tpu_torch.graph.config import parse_ini_text
 from sdrreceiver_tpu_torch.graph.plan import build_plan
 from sdrreceiver_tpu_torch.kernels import design, fir, nco
+from test_torch_cli import _free_port
 from test_torch_modules import _to_ini
 
 # six xdist workers share the machine's cores: a few torch threads each
@@ -254,7 +254,7 @@ def test_shard_kernels_engage_and_no_bucket_kernel(sharded, monkeypatch):
     sites = rx.mix_cascades()
     assert sorted(sites) == [f"shard{i}/front" for i in range(4)]
     assert all(mc.depths == [2, 3] and t == BLOCK // 4 + 256 for mc, t in sites.values())
-    assert rx._bucket_mc == {} and rx._merged is None and rx._group_mc == {}
+    assert rx._bucket_mc == {} and [gidxs for _, _, gidxs in rx._fronts] == [[0, 1]]
     assert [(lo, hi) for lo, hi, _, _ in rx._chan_parts["g0/b0"]] == [(0, 2), (2, 3)]
     calls = []
     plain = MixCascade.plain
@@ -386,12 +386,6 @@ def test_initialize_single_process():
 
 
 # ------------------------------------------------- two processes, gloo
-def _free_port() -> int:
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
-
-
 @pytest.fixture(scope="module")
 def recording(tmp_path_factory):
     """tests/test_multihost_proc.py's ini (2 groups, 3 channels) and a

@@ -39,6 +39,7 @@ from sdrreceiver_tpu_torch.graph.config import parse_ini_text
 from sdrreceiver_tpu_torch.graph.plan import build_plan
 from sdrreceiver_tpu_torch.io import iqfile, native, rtlusb, rtltcp
 from sdrreceiver_tpu_torch.obs.spectrum import LiveScope
+from test_torch_cli import _free_port
 
 # six xdist workers share the machine's cores: a few torch threads each
 torch.set_num_threads(2)
@@ -64,12 +65,6 @@ size=1
 1\\data_rate=600
 1\\topic=VFO01
 """
-
-
-def _free_port() -> int:
-    with socket.socket() as sk:
-        sk.bind(("127.0.0.1", 0))
-        return sk.getsockname()[1]
 
 
 def _mini(port: int, remote: str = "") -> str:
