@@ -62,6 +62,16 @@ its result and failing the script (non-zero exit) if it fails:
      ``--partition global --mesh 2x1`` (each process writes its own topics,
      union within 1 LSB); each process's kernels launched once a block;
      three processes for two groups (one exits 1)
+ 19. the step entries as CUDA graphs (the receiver's default on the card;
+     every phase above runs through them): the flagship ``step_u8`` at
+     1,536,000, 384,000 and 2048, the alt-rate ``step_f32`` at 480,000, the
+     IQ plan and the 288k plan, each against the eager step
+     (``cuda_graphs=False``) on the same blocks, audio, ``iq/``, ``tap/``
+     and exported state bit-equal; ``step_many_*`` with k=4 bit-equal to 4
+     graph steps; the profiler's kernels and memsets per replayed step equal
+     to the eager step's and to the wrappers' counts; step ms in turns,
+     realtime factor, device time, idle share, CUDA rows and peak memory of
+     both paths; the alt-rate runtime at ``--burst 1`` and 4
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -370,7 +380,8 @@ def phase_iq(dev: torch.device) -> dict:
     plan = build_plan(parse_ini_text(IQ_INI))
     taps = ("main", "g0", "VFO01")
     rx = CompiledReceiver(plan, IQ_BLOCK, emit_taps=taps, device=dev)
-    plain = CompiledReceiver(plan, IQ_BLOCK, emit_taps=taps, device=dev, use_kernels=False)
+    plain = CompiledReceiver(plan, IQ_BLOCK, emit_taps=taps, device=dev, use_kernels=False,
+                             cuda_graphs=False)
     direct = CompiledReceiver(plan, IQ_BLOCK, emit_taps=taps, device=dev, ossfft_min_taps=None)
     if set(rx._oss) != {"g1/b0"} or direct._oss:
         fail(f"iq plan: overlap-save banks {sorted(rx._oss)}, direct {sorted(direct._oss)}")
@@ -513,7 +524,7 @@ def phase_blocks(dev, card: str, reps: int) -> dict:
 
     plan = build_plan(benchmark_config())
     short = CompiledReceiver(plan, 2048, device=dev)
-    short_plain = CompiledReceiver(plan, 2048, device=dev, use_kernels=False)
+    short_plain = CompiledReceiver(plan, 2048, device=dev, use_kernels=False, cuda_graphs=False)
     long_ = CompiledReceiver(plan, 65_536, device=dev)
     raw, tones = flagship_stream(1, 65_536, seed=10)
     raw = torch.tensor(raw, device=dev)
@@ -568,7 +579,7 @@ def phase_blocks(dev, card: str, reps: int) -> dict:
     # chain divisor of 6 and not of 256
     plan288 = build_plan(parse_ini_text("correct_dc_bias=1\n" + INI_288))
     r288 = CompiledReceiver(plan288, 72_000, device=dev)
-    p288 = CompiledReceiver(plan288, 72_000, device=dev, use_kernels=False)
+    p288 = CompiledReceiver(plan288, 72_000, device=dev, use_kernels=False, cuda_graphs=False)
     raw288 = torch.tensor(rng.integers(100, 156, (4, 2 * r288.block), dtype=np.uint8), device=dev)
     r288.dc_ingest.launches = 0
     k288 = steps_audio(r288, raw288)
@@ -1002,7 +1013,7 @@ def phase_alt_timing(dev, card: str, alt: dict, iqr: dict, reps: int) -> dict:
 
     plan = build_plan(altrate_config())
     rx = CompiledReceiver(plan, ALT_BLOCK, device=dev)
-    rx_plain = CompiledReceiver(plan, ALT_BLOCK, device=dev, use_kernels=False)
+    rx_plain = CompiledReceiver(plan, ALT_BLOCK, device=dev, use_kernels=False, cuda_graphs=False)
     raw = alt["raw"]
     n = raw.size // (2 * ALT_BLOCK)
     f32 = torch.tensor(raw.astype(np.float32) - 127.0, device=dev).reshape(n, -1)
@@ -1401,6 +1412,197 @@ def phase_multihost(card: str) -> None:
         fail("3 processes for 2 groups: not exactly one refused")
 
 
+#: phase 19's receivers: plan, block, step entry
+GRAPH_CASES = (
+    ("flagship", BLOCK, "u8"), ("flagship", LIVE_BLOCK, "u8"), ("altrate", ALT_BLOCK, "f32"),
+    ("iq plan", IQ_BLOCK, "u8"), ("288k", 57_600, "u8"), ("flagship", 2048, "u8"),
+)
+
+
+def graph_plan(name: str):
+    """(plan, scope taps) of a phase-19 case."""
+    from sdrreceiver_tpu_torch.flagship import altrate_config, benchmark_config
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    if name == "iq plan":
+        return build_plan(parse_ini_text(IQ_INI)), ("main", "g0", "VFO01")
+    if name == "288k":
+        return build_plan(parse_ini_text(INI_288)), ()
+    return build_plan((benchmark_config if name == "flagship" else altrate_config)()), ()
+
+
+def entry_run(rx, entry: str, blocks) -> tuple[list[dict], list[dict]]:
+    """(every output of each block on the host, the exported state after
+    each block) of ``rx.step_<entry>`` over ``blocks``."""
+    fn = getattr(rx, f"step_{entry}")
+    st, outs, states = rx.init_state(), [], []
+    for b in blocks:
+        st, o = fn(st, b)
+        outs.append({k: v.cpu().numpy() for k, v in o.items()})
+        states.append(rx.export_state(st))
+    return outs, states
+
+
+def bit_equal(a: list[dict], b: list[dict]) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
+
+
+def step_turns(rxs: dict, entry: str, blocks, reps: int) -> dict[str, list[float]]:
+    """Median ms per step of each receiver by CUDA events between
+    consecutive steps, in turns (eager, graph, graph, eager)."""
+    states = {k: r.init_state() for k, r in rxs.items()}
+    out: dict[str, list[float]] = {k: [] for k in rxs}
+    for key in ("eager", "graph", "graph", "eager"):
+        fn, st = getattr(rxs[key], f"step_{entry}"), states[key]
+        for i in range(3):
+            st, _ = fn(st, blocks[i % len(blocks)])
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i in range(reps):
+            st, _ = fn(st, blocks[i % len(blocks)])
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        states[key] = st
+        out[key].append(float(np.median([ev[i].elapsed_time(ev[i + 1]) for i in range(reps)])))
+    return out
+
+
+def peak_mib(make, entry: str, blocks) -> float:
+    """Peak device memory (MiB) above what was allocated before, of a
+    receiver ``make()`` built and stepped 3 times (its graph captured)."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    rx = make()
+    fn, st = getattr(rx, f"step_{entry}"), rx.init_state()
+    for i in range(3):
+        st, _ = fn(st, blocks[i % len(blocks)])
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def step_rows(rx, entry: str, blocks, calls: int = 10) -> dict:
+    """Per step under ``torch.profiler`` (``cuda/devtime.device_us``, which
+    drops the trace's first records and profiles again while a row is not
+    whole per call): CUDA rows (kernels, memsets, copies) by name, their
+    device µs, the wall ms of the profiled steps, and the wrappers' launch
+    counts per step."""
+    from sdrreceiver_tpu_torch.cuda import devtime
+
+    fn = getattr(rx, f"step_{entry}")
+    st = {"s": rx.init_state(), "i": 0, "n": 0}
+
+    def step():
+        st["i"] = (st["i"] + 1) % len(blocks)
+        st["n"] += 1
+        st["s"], _ = fn(st["s"], blocks[st["i"]])
+
+    before = path_launches(rx)
+    wall: dict = {}
+    us, rows = devtime.device_us(step, calls, wall=wall)
+    after = path_launches(rx)
+    return {"rows": rows, "device_us": us, "wall_ms": wall["ms"],
+            "launched": {k: (after[k] - before[k]) / st["n"] for k in after}}
+
+
+def row_kinds(rows: dict) -> dict[str, float]:
+    """Per-step counts of the DC kernel, the mix-cascade kernel, memsets and
+    every CUDA row."""
+    def n(f):
+        return sum(c for k, c in rows.items() if f(k))
+    return {"dc_": n(lambda k: "dc_ingest_kernel" in k),
+            "mix_cascade": n(lambda k: "mix_cascade_kernel" in k),
+            "memset": n(lambda k: "memset" in k.lower()), "rows": n(lambda k: True)}
+
+
+def phase_graphs(dev, card: str, reps: int) -> dict:
+    """19. Every single-device step entry as one CUDA graph, against the
+    eager step (``cuda_graphs=False``) on the same blocks."""
+    from sdrreceiver_tpu_torch.core.runtime import run_pipeline
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+
+    out = {}
+    for name, block, entry in GRAPH_CASES:
+        plan, taps = graph_plan(name)
+        n = 4 if block >= 100_000 else 8
+        raw = torch.tensor(plan_stream(plan, n, block, seed=19), device=dev)
+        blocks = raw if entry == "u8" else raw.float() - 127.0
+        what = f"graphs {name} step_{entry} block {block}"
+
+        def make(graphs: bool = True):
+            return CompiledReceiver(plan, block, emit_taps=taps, device=dev, cuda_graphs=graphs)
+
+        rxs = {"graph": make(), "eager": make(False)}
+        got, g_states = entry_run(rxs["graph"], entry, blocks)
+        launches = path_launches(rxs["graph"])
+        ref, e_states = entry_run(rxs["eager"], entry, blocks)
+        keys = sorted(got[0])
+        same = bit_equal(got, ref) and bit_equal(g_states, e_states)
+        print(f"{what}: graph vs eager over {n} blocks, outputs {keys} and exported state "
+              f"bit-equal: {same}; launches {launches} (expected {n} each)")
+        if not same or any(v != n for v in launches.values()):
+            fail(f"{what}: the graph differs from the eager step or missed a launch")
+        st, many = getattr(rxs["graph"], f"step_many_{entry}")(rxs["graph"].init_state(),
+                                                                 blocks[:4])
+        burst = [{k: v.cpu().numpy() for k, v in o.items()}
+                 for o in rxs["graph"].unstack_outputs(many, 4)]
+        same = bit_equal(burst, got[:4]) and bit_equal([rxs["graph"].export_state(st)],
+                                                        g_states[3:4])
+        print(f"{what}: step_many_{entry} k=4 vs 4 graph steps bit-equal: {same}")
+        if not same:
+            fail(f"{what}: the burst graph differs from 4 graph steps")
+
+        turns = step_turns(rxs, entry, blocks, reps)
+        ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        rt = {k: 1000.0 * block / plan.fs / v for k, v in ms.items()}
+        prof = {k: step_rows(r, entry, blocks) for k, r in rxs.items()}
+        kinds = {k: row_kinds(p["rows"]) for k, p in prof.items()}
+        mem = {"eager": peak_mib(lambda: make(False), entry, blocks),
+               "graph": peak_mib(make, entry, blocks)}
+        for k in ("eager", "graph"):
+            # idle share: device time against the step's time outside the profiler
+            print(f"{what} {k}: {ms[k]:.4f} ms/step (medians in turns {turns[k]}), realtime "
+                  f"x{rt[k]:.2f}; profiled: {prof[k]['wall_ms']:.4f} ms/step, device "
+                  f"{prof[k]['device_us']:.1f} us over {kinds[k]['rows']:g} CUDA rows, idle "
+                  f"share {1.0 - prof[k]['device_us'] / 1e3 / ms[k]:.3f}; rows "
+                  f"{kinds[k]}; wrapper launches per step {prof[k]['launched']}; peak device "
+                  f"memory {mem[k]:.1f} MiB {card}")
+        for kind in ("dc_", "mix_cascade", "memset"):
+            if kinds["graph"][kind] != kinds["eager"][kind]:
+                fail(f"{what}: a replay runs {kinds['graph'][kind]:g} {kind} rows, the eager "
+                     f"step {kinds['eager'][kind]:g}")
+        per_step = {"dc_": prof["graph"]["launched"].get("dc_ingest", 0.0),
+                    "mix_cascade": sum(v for k, v in prof["graph"]["launched"].items()
+                                       if k.startswith("mix_cascade"))}
+        if any(per_step[k] != kinds["graph"][k] for k in per_step):
+            fail(f"{what}: the wrappers' counts {per_step} are not the profiler's {kinds['graph']}")
+        out[(name, block)] = {"ms": ms, "rt": rt, "kinds": kinds, "mem": mem,
+                              "device_us": {k: p["device_us"] for k, p in prof.items()},
+                              "profiled_ms": {k: p["wall_ms"] for k, p in prof.items()}}
+        if name == "altrate":
+            # the offline runtime as process-file drives it, host f32 blocks,
+            # --burst 1 and 4 in turns, each receiver's graphs captured first
+            host = [b.cpu().numpy() for b in blocks] * 2
+            rts = {1: [], 4: []}
+            rx_b = {1: make(), 4: make()}
+            for b in rx_b:
+                run_pipeline(rx_b[b], iter(host), lambda o: 0, burst=b)
+            for b in (1, 4, 4, 1):
+                m = run_pipeline(rx_b[b], iter(host), lambda o: 0, burst=b)
+                rts[b].append(m.samples_per_second / 1e6)
+            print(f"{what}: run_pipeline over {len(host)} host blocks, Msamples/s "
+                  f"--burst 1 {rts[1]}, --burst 4 {rts[4]} (graphs captured before) {card}")
+            out["burst_msps"] = rts
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
@@ -1435,7 +1637,7 @@ def main() -> None:
 
     plan = build_plan(benchmark_config())
     rx = CompiledReceiver(plan, BLOCK, device=dev)
-    rx_plain = CompiledReceiver(plan, BLOCK, device=dev, use_kernels=False)
+    rx_plain = CompiledReceiver(plan, BLOCK, device=dev, use_kernels=False, cuda_graphs=False)
     rng = np.random.default_rng(0)
 
     # ---- 3. kernels vs plain versions at flagship shapes ----
@@ -1597,6 +1799,9 @@ def main() -> None:
     mesh = phase_mesh(dev, card, reps)
     shard_err = max(mesh["err"], phase_cband(dev, card), phase_alt_mesh(alt)["err"])
     phase_multihost(card)
+
+    # ---- 19. the step entries as CUDA graphs ----
+    phase_graphs(dev, card, reps)
 
     kernels = [
         {"name": "dc_ingest", "route": "cuda",

@@ -19,8 +19,10 @@ JSON:
   bench         steady-state throughput of the receiver on synthetic blocks
 
 ``--device`` picks the torch device (default ``cuda``; asking for it
-without a card is an error, never a fall back to the CPU).  ``--plain``
-runs the kernels' plain PyTorch versions (``use_kernels=False``).
+without a card is an error, never a fall back to the CPU).  On the card the
+receiver replays one CUDA graph per step (``CompiledReceiver``'s default).
+``--plain`` runs the kernels' plain PyTorch versions, eagerly
+(``use_kernels=False, cuda_graphs=False``).
 ``--mesh TxC`` runs the sharded receiver over T*C local devices (the cards,
 repeated when T*C exceeds their count; ``--device cpu``: the CPU T*C
 times).  ``--coordinator HOST:PORT`` with ``--num-processes`` and
@@ -149,8 +151,10 @@ def _build(args, taps=()):
         div = plan.block_divisor() * n_time
         block = args.block or -(-plan.block_samples // div) * div
         return cfg, plan, ShardedReceiver(plan, mesh, block, emit_taps=tuple(taps), **kw)
+    # on the card the kernel path replays CUDA graphs; the plain one is eager
     return cfg, plan, CompiledReceiver(
-        plan, args.block, emit_taps=tuple(taps), device=args.device, **kw
+        plan, args.block, emit_taps=tuple(taps), device=args.device,
+        cuda_graphs=not args.plain, **kw
     )
 
 
@@ -589,7 +593,8 @@ def cmd_bench(args) -> int:
         out["multihost"] = mh = args._multihost
         # eff(N) = min_h(sps_h) / (N sps_1): every process also benches the
         # FULL plan on one device (sps_1), then the rates are all-gathered
-        full_rx = CompiledReceiver(args._full_plan, device=rx.device, use_kernels=rx.use_kernels)
+        full_rx = CompiledReceiver(args._full_plan, device=rx.device, use_kernels=rx.use_kernels,
+                                   cuda_graphs=rx.use_kernels)
         sps_1 = _bench_sps(full_rx, max(2, args.blocks // 2))
         mh["sps_1_full_plan"] = round(sps_1 / 1e6, 2)
         import torch.distributed as dist

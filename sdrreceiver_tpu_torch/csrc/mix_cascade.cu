@@ -90,6 +90,7 @@ constexpr int kOut = 4;          // consecutive outputs per thread item
 constexpr int kLanes = 16;       // phase lanes of an item group, at most
 constexpr int kWarps = kThreads / 32;
 constexpr int kFsLimit = 1 << 22;
+constexpr int kMaxDevices = 64;
 
 __host__ __device__ inline int tap_len(int d) { return 10 * ((1 << d) - 1) + 1; }
 
@@ -350,10 +351,20 @@ extern "C" int mix_cascade_launch(const float* xr, const float* xi,
                       static_cast<size_t>(2 * span) * sizeof(float) +
                       static_cast<size_t>(zp_cap) * sizeof(float2);
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        mix_cascade_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+    // the opt-in belongs to the function on a device, not to a stream: set
+    // it once per device and size (a CUDA graph's warm-up calls set it
+    // before the capture, which then makes no such call)
+    static int opted_in[kMaxDevices] = {};
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
     if (e != cudaSuccess) return static_cast<int>(e);
+    if (dev >= kMaxDevices || static_cast<int>(smem) > opted_in[dev]) {
+      e = cudaFuncSetAttribute(mix_cascade_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+      if (e != cudaSuccess) return static_cast<int>(e);
+      if (dev < kMaxDevices) opted_in[dev] = static_cast<int>(smem);
+    }
   }
   const long long n_tiles = (t_len + tile - 1) / tile;
   if (n_tiles > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);

@@ -15,9 +15,11 @@ versions' times for each case both have: the way to compare a change with
 its parent (unpack the parent with ``git archive`` into a gitignored
 directory).  Only the package's public wrappers are used (``DcIngest``,
 ``CompiledReceiver.mix_cascades``), so any version of the port can be
-timed.  ``--steps`` profiles whole flagship steps instead, one device
-against 4x1, 2x2 and 1x4 meshes of the card: wall time, device time,
-kernels per step, the device's idle share, and the rows a mesh adds.
+timed.  ``--steps`` profiles whole flagship steps instead: one device
+eager, as a CUDA graph and as a graph with stateful buckets (in turns),
+and 4x1, 2x2 and 1x4 meshes of the card: wall time, device time, CUDA rows
+per step, the device's idle share, and the rows each adds over the eager
+one-device step.
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -77,29 +79,45 @@ def joint_bound(cases: list[dict]) -> tuple[float, str]:
 
 
 def device_us(fn, calls: int, row_us: dict | None = None,
-              tries: int = 3) -> tuple[float, dict[str, int]]:
+              tries: int = 3, wall: dict | None = None) -> tuple[float, dict[str, int]]:
     """(µs of device time per call, {CUDA row name: rows per call}) over
     ``calls`` calls of ``fn`` after 5 warm-up calls; ``row_us``, when
-    given, receives each row's µs per call.
+    given, receives each row's µs per call, and ``wall`` the profiled
+    calls' ms per call by CUDA events (``wall["ms"]``), the time the
+    device time is a share of.
 
-    The profiler now and then loses device records (a kernel counted 44
-    times in 50 calls).  A profile in which some row is not a whole number
-    per call is taken again, up to ``tries`` times; the last one is
-    returned either way, so a caller that checks the rows still sees it."""
+    The profiler loses device records at the start of a trace (a step's
+    first kernel and memset counted 9 times in 10 steps, a kernel 44 times
+    in 50 calls), so each profile first runs a warm-up cycle of 2 calls
+    whose records are dropped (``schedule(warmup=1)``).  A profile in which
+    some row is still not a whole number per call is taken again, up to
+    ``tries`` times; the last one is returned either way, so a caller that
+    checks the rows still sees it."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     for _ in range(5):
         fn()
     torch.cuda.synchronize()
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
                 fn()
             torch.cuda.synchronize()
+            prof.step()
+            start.record()
+            for _ in range(calls):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            prof.step()
         total, counts, times = 0.0, {}, {}
         for e in prof.key_averages():
-            if e.device_type != torch.autograd.DeviceType.CUDA:
+            # the schedule's own span ("ProfilerStep#2") is no device work
+            if (e.device_type != torch.autograd.DeviceType.CUDA
+                    or e.key.startswith("ProfilerStep")):
                 continue
             t = getattr(e, "self_device_time_total", None)
             if t is None:
@@ -112,6 +130,8 @@ def device_us(fn, calls: int, row_us: dict | None = None,
         print(f"devtime: profile {attempt + 1} lost device records {counts}", file=sys.stderr)
     if row_us is not None:
         row_us.update(times)
+    if wall is not None:
+        wall["ms"] = start.elapsed_time(end) / calls
     return total / calls, {k: n / calls for k, n in counts.items()}
 
 
@@ -169,9 +189,10 @@ def measure(calls: int = 50, seed: int = 0, step: bool = True) -> list[dict]:
 
 
 def step_case(block: int, seed: int, steps: int = 20) -> dict:
-    """The flagship ``step_u8`` at ``block``: wall time per step by CUDA
-    events around ``steps`` steps after 3 warm-up steps (host-bound: the
-    events time the host's launches, which is the step's cost)."""
+    """The flagship ``step_u8`` at ``block`` (the receiver's default path:
+    CUDA graphs where the package has them): wall time per step by CUDA
+    events around ``steps`` steps after 3 warm-up steps (an eager step is
+    host-bound: the events time the host's launches, which is its cost)."""
     import numpy as np
     import torch
 
@@ -196,15 +217,45 @@ def step_case(block: int, seed: int, steps: int = 20) -> dict:
             "step_ms": start.elapsed_time(end) / steps}
 
 
+def step_profile(rx, raw, calls: int) -> dict:
+    """``rx.step_u8`` alternating over ``raw [2, 2T]``: wall ms per step
+    (CUDA events around ``calls`` steps, outside the profiler), and under
+    ``torch.profiler`` device µs, CUDA rows (kernels, memsets, copies) and
+    the profiled steps' wall ms (the profiler slows the host); the device's
+    idle share against the wall time outside the profiler; each row's µs
+    and count."""
+    import torch
+
+    st = {"s": rx.init_state(), "i": 0}
+
+    def step():
+        st["i"] ^= 1
+        st["s"], _ = rx.step_u8(st["s"], raw[st["i"]])
+
+    row_us: dict[str, float] = {}
+    wall: dict = {}
+    us, rows = device_us(step, calls, row_us, wall=wall)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        step()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / calls
+    return {"wall_ms": ms, "profiled_ms": wall["ms"],
+            "device_us": us, "rows_per_step": sum(rows.values()),
+            "idle_share": 1.0 - us / 1e3 / ms,
+            "rows": {k: [row_us[k], n] for k, n in rows.items()}}
+
+
 def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
-    """Where a step's time goes, one device against a mesh on the same card:
-    the flagship ``step_u8`` at 1,536,000 and 384,000 on one device and on
-    4x1, 2x2 and 1x4 meshes of four shards of the card, and on one device
-    with its buckets on the stateful path (a mesh's bucket path, without
-    the mesh).  Per step: wall ms
-    (CUDA events around ``calls`` steps), device µs and CUDA rows (kernels
-    and memsets, ``torch.profiler``), the device's idle share, and the µs
-    and count of each row."""
+    """Where a step's time goes: the flagship ``step_u8`` at 1,536,000 and
+    384,000 on one device, eager ("one device", ``cuda_graphs=False``), as
+    a CUDA graph, and as a graph with its buckets on the stateful path (a
+    mesh's bucket path, without the mesh), these three in turns (eager,
+    graph, stateful, stateful, graph, eager; the two profiles of each
+    averaged, rows from the second); then on 4x1, 2x2 and 1x4 meshes of
+    four shards of the card (eager).  Each case as :func:`step_profile`."""
     import numpy as np
     import torch
 
@@ -219,41 +270,32 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
     for block in (1_536_000, 384_000):
         raw = torch.tensor(np.random.default_rng(seed).integers(100, 156, (2, 2 * block),
                                                                  dtype=np.uint8), device=dev)
-        rxs = [("one device", CompiledReceiver(plan, block, device=dev))]
         # one device with its buckets on the stateful path, as under a mesh
         stateful = CompiledReceiver(plan, block, device=dev)
         stateful._bucket_mc = {}
-        rxs.append(("one device, stateful buckets", stateful))
-        rxs += [(f"mesh {t}x{c}", ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block))
-                for t, c in ((4, 1), (2, 2), (1, 4))]
-        for name, rx in rxs:
-            st = {"s": rx.init_state(), "i": 0}
-
-            def step():
-                st["i"] ^= 1
-                st["s"], _ = rx.step_u8(st["s"], raw[st["i"]])
-
-            row_us: dict[str, float] = {}
-            us, rows = device_us(step, calls, row_us)
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(calls):
-                step()
-            end.record()
-            torch.cuda.synchronize()
-            wall = start.elapsed_time(end) / calls
-            out.append({"case": f"flagship block {block} {name}", "wall_ms": wall,
-                        "device_us": us, "rows_per_step": sum(rows.values()),
-                        "idle_share": 1.0 - us / 1e3 / wall,
-                        "rows": {k: [row_us[k], n] for k, n in rows.items()}})
+        single = {"one device": CompiledReceiver(plan, block, device=dev, cuda_graphs=False),
+                  "one device, graph": CompiledReceiver(plan, block, device=dev),
+                  "one device, graph, stateful buckets": stateful}
+        turns: dict[str, list[dict]] = {k: [] for k in single}
+        for name in [*single, *reversed(single)]:
+            turns[name].append(step_profile(single[name], raw, calls))
+        for name, (a, b) in turns.items():
+            avg = {k: (a[k] + b[k]) / 2 for k in ("wall_ms", "profiled_ms", "device_us",
+                                                  "idle_share")}
+            out.append({"case": f"flagship block {block} {name}", **b, **avg,
+                        "turns_wall_ms": [a["wall_ms"], b["wall_ms"]]})
+        for t, c in ((4, 1), (2, 2), (1, 4)):
+            rx = ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block)
+            out.append({"case": f"flagship block {block} mesh {t}x{c}",
+                        **step_profile(rx, raw, calls)})
     return out
 
 
 def mesh_extra(steps: list[dict], top: int = 8) -> dict[str, list]:
-    """For each mesh case of :func:`step_profiles` (and the one-device step
-    with stateful buckets), the rows whose device time grew most over the
-    one-device step at the same block: ``[row, µs more, rows more]`` per
-    step."""
+    """For each mesh case of :func:`step_profiles` and each graph case, the
+    rows whose device time grew most over the eager one-device step at the
+    same block (the graph with stateful buckets: over the graph):
+    ``[row, µs more, rows more]`` per step."""
     out = {}
     for c in steps:
         block, _, name = c["case"].partition(" mesh ")
@@ -261,7 +303,8 @@ def mesh_extra(steps: list[dict], top: int = 8) -> dict[str, list]:
             block, _, name = c["case"].partition(" one device, ")
         if not name:
             continue
-        one = next(o["rows"] for o in steps if o["case"] == f"{block} one device")
+        base = f"{block} one device" + (", graph" if "stateful" in name else "")
+        one = next(o["rows"] for o in steps if o["case"] == base)
         keys = set(c["rows"]) | set(one)
         diff = [[k, c["rows"].get(k, [0, 0])[0] - one.get(k, [0, 0])[0],
                  c["rows"].get(k, [0, 0])[1] - one.get(k, [0, 0])[1]] for k in keys]
@@ -340,11 +383,13 @@ def main(argv=None) -> None:
     if args.steps:
         steps = step_profiles()
         for c in steps:
-            print(f"{c['case']:36s} wall {c['wall_ms']:8.3f} ms, device {c['device_us']:8.1f} us "
-                  f"over {c['rows_per_step']:.0f} CUDA rows, idle {c['idle_share']:.3f}")
+            print(f"{c['case']:58s} wall {c['wall_ms']:8.3f} ms (profiled "
+                  f"{c['profiled_ms']:8.3f}), device {c['device_us']:8.1f} us over "
+                  f"{c['rows_per_step']:.0f} CUDA rows, idle {c['idle_share']:.3f}")
         extra = mesh_extra(steps)
         for case, diff in extra.items():
-            print(f"{case}: most device time added over one device:")
+            base = "the graph" if "stateful" in case else "one device, eager"
+            print(f"{case}: most device time added over {base}:")
             for k, dus, dn in diff:
                 print(f"    {dus:+9.1f} us {dn:+6.0f} rows  {k[:90]}")
         for c in steps:

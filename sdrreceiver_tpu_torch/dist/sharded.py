@@ -22,7 +22,8 @@ step (``CompiledReceiver._bucket_step``) unchanged, on the stateful path
 State and outputs live on the home device in exactly the single-device
 layout: ``export_state`` / ``import_state``, the checkpoints and the burst
 entries are inherited, and a checkpoint crosses between sharded and
-unsharded receivers of either package.
+unsharded receivers of either package.  The sharded step runs eagerly, not
+as a CUDA graph (``cuda_graphs=False``).
 """
 
 from __future__ import annotations
@@ -113,7 +114,10 @@ class ShardedReceiver(CompiledReceiver):
             from .multihost import ProcessSpan
 
             self._span = ProcessSpan(mesh)
-        super().__init__(plan, block, device=mesh.home, **kwargs)
+        if kwargs.pop("cuda_graphs", False):
+            raise ValueError("ShardedReceiver runs eagerly: cuda_graphs=True is not supported")
+        # eager: a step copies between devices and, across processes, waits on gloo
+        super().__init__(plan, block, device=mesh.home, cuda_graphs=False, **kwargs)
         # each bucket of at least n_chan channels: contiguous ranges over
         # the chan devices of this process's first time row
         self._chan_parts: dict[str, list] = {}

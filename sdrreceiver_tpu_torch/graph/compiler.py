@@ -14,7 +14,9 @@ mix-cascade kernel (``cuda/frontend.py``): one merged kernel call for all
 group fronts when two or more groups cascade, then one per bucket.  The rest
 is torch ops.  On CPU tensors the kernel wrappers run their plain versions;
 ``use_kernels=False`` calls the plain versions on any device (the reference
-the kernels are held to on the card).
+the kernels are held to on the card).  On the card each step entry and each
+burst runs as one captured CUDA graph (``cudagraph.py``), the counterpart of
+the JAX package's one executable per entry; the state passed in is donated.
 
 The mix-cascade kernel is stateless: each call is prefixed with the stream's
 past (the carried post-DC input tail ``xtail`` for group fronts, the
@@ -61,6 +63,7 @@ from ..kernels import (
     polyphase,
     usbdemod,
 )
+from .cudagraph import StepGraphs, flatten, run_burst
 from .plan import ReceiverPlan
 
 __all__ = ["CompiledReceiver"]
@@ -105,18 +108,6 @@ def _layout_warmup(stages: int, data_len: int, fs: int, base: int | None = None)
     return base if fallback is None else fallback
 
 
-def _flatten(tree, prefix: str = ""):
-    """(path, tensor) leaves of a nested dict/list state, paths joined by
-    '/' (the JAX package's pytree key paths)."""
-    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
-    for k, v in items:
-        key = f"{prefix}{k}"
-        if isinstance(v, (dict, list)):
-            yield from _flatten(v, key + "/")
-        else:
-            yield key, v
-
-
 def _is_planar_pair(key: str) -> bool:
     """State paths held as planar ``[2, ...]`` f32 whose canonical
     (checkpoint) form is complex64: the DC mean, the input tail, cascade
@@ -144,7 +135,18 @@ class CompiledReceiver:
     when asked for (``device="cpu"``).  ``use_kernels=False`` runs the kernels'
     plain versions on any device.  Audio filters of at least
     ``ossfft_min_taps`` taps run through the overlap-save FFT engine
-    (``kernels/ossfft``; None disables it)."""
+    (``kernels/ossfft``; None disables it).
+
+    ``cuda_graphs`` (on the card): each step and burst entry captures its
+    work as one CUDA graph on its first call and replays it from then on
+    (:class:`~.cudagraph.StepGraphs`).  The state is then donated as in the
+    JAX package: a step consumes the state passed to it and returns the
+    receiver's own state buffers, updated in place, so a caller that needs
+    a state later exports or clones it first.  Outputs stay valid after
+    later steps.  ``cuda_graphs=False`` runs the step eagerly (for A/B
+    timing).  The plain versions synchronise with the host and cannot be
+    captured: ``use_kernels=False`` needs ``cuda_graphs=False`` and runs
+    eagerly.  On the CPU the step is eager."""
 
     # one device computes the block as one time shard; dist.ShardedReceiver
     # sets its mesh and its time-shard count
@@ -160,6 +162,7 @@ class CompiledReceiver:
         use_kernels: bool = True,
         ossfft_min_taps: int | None = 128,
         tap_samples: int | None = 8192,
+        cuda_graphs: bool = True,
     ):
         self.plan = plan
         self.block = int(block_samples or plan.block_samples)
@@ -177,6 +180,12 @@ class CompiledReceiver:
         elif self.device.type != "cpu":
             raise ValueError(f"CompiledReceiver: unsupported device {self.device}")
         self.use_kernels = bool(use_kernels)
+        self.cuda_graphs = bool(cuda_graphs)
+        if self.cuda_graphs and not self.use_kernels:
+            raise ValueError(
+                "cuda_graphs=True needs use_kernels=True: the plain versions synchronise "
+                "with the host; pass cuda_graphs=False to run them"
+            )
         bad = set(self.emit_taps) - set(self.tap_rates())
         if bad:
             raise ValueError(f"unknown taps {sorted(bad)}; valid: {sorted(self.tap_rates())}")
@@ -186,12 +195,19 @@ class CompiledReceiver:
                 f"block of {self.block} samples not a multiple of chain divisor {div}"
             )
         self._build_consts()
+        use_graphs = self.cuda_graphs and self.device.type == "cuda"
+        self._graphs = StepGraphs(self) if use_graphs else None
 
     # ------------------------------------------------------------ checks
-    def _check_input(self, raw: torch.Tensor, dtype: torch.dtype, n: int) -> None:
-        if raw.device != self.device or raw.dtype != dtype or raw.shape != (n,):
+    def _check_input(self, raw: torch.Tensor, dtype: torch.dtype, n: int,
+                     burst: bool = False) -> None:
+        """``raw`` is ``[n]`` (a burst: ``[k, n]``, k >= 1) of ``dtype`` on
+        the receiver's device."""
+        shape = (raw.shape[:1] if burst else ()) + (n,)
+        if raw.device != self.device or raw.dtype != dtype or raw.shape != shape or 0 in shape:
+            want = f"[k, {n}]" if burst else f"[{n}]"
             raise ValueError(
-                f"expected {dtype} [{n}] on {self.device}, got {raw.dtype} "
+                f"expected {dtype} {want} on {self.device}, got {raw.dtype} "
                 f"{tuple(raw.shape)} on {raw.device}"
             )
 
@@ -205,6 +221,9 @@ class CompiledReceiver:
         self._hb1 = fir.prepare_taps(hb, 1, dev)
         self._c: dict[str, torch.Tensor] = {}
         self._oss: dict[str, dict] = {}
+        # each IQ-forwarding group's compression divisor, built once
+        self._iq_scale = {g.index: compress.scale_tensor(g.compress_scale, dev)
+                          for g in plan.groups if g.publishes_iq}
         self._build_kernels()
         for g in plan.groups:
             for bi, b in enumerate(g.buckets):
@@ -353,8 +372,10 @@ class CompiledReceiver:
         mean, the tail and the cascade histories, uint32 for NCO integers,
         float32 otherwise."""
         out: dict[str, np.ndarray] = {}
-        for key, v in _flatten(state):
-            a = v.detach().cpu().numpy()
+        for key, v in flatten(state):
+            # a copy: on the CPU .numpy() would share the state's memory,
+            # which the next graph step rewrites in place
+            a = v.detach().cpu().numpy().copy()
             if _is_planar_pair(key):
                 out[key] = np.asarray(a[0] + 1j * a[1]).astype(np.complex64)
             elif a.dtype == np.int64:
@@ -407,40 +428,44 @@ class CompiledReceiver:
     def step_u8(self, state: dict, raw: torch.Tensor):
         """One block of interleaved u8 IQ ``[2T]`` (the dongle format)."""
         self._check_input(raw, torch.uint8, 2 * self.block)
-        return self._step_raw(state, raw)
+        return self._step(state, raw)
 
     def step_f32(self, state: dict, raw: torch.Tensor):
         """One block of interleaved float32 IQ ``[2T]``."""
         self._check_input(raw, torch.float32, 2 * self.block)
-        return self._step_raw(state, raw)
+        return self._step(state, raw)
 
     def step_iq(self, state: dict, iq: torch.Tensor):
         """One block of complex64 IQ ``[T]`` (its memory is the interleaved
         f32 layout, so it takes the f32 entry)."""
         self._check_input(iq, torch.complex64, self.block)
-        return self._step_raw(state, torch.view_as_real(iq.contiguous()).reshape(-1))
+        return self._step(state, torch.view_as_real(iq.contiguous()).reshape(-1))
 
     def step_many_u8(self, state: dict, raws: torch.Tensor):
         """Burst entry: ``raws [k, 2T]`` uint8 -> k single steps, outputs
         stacked along a leading ``k`` axis (bit-equal to k calls of
-        :meth:`step_u8`)."""
-        return self._many(self.step_u8, state, raws)
+        :meth:`step_u8`); one graph of k steps on the card."""
+        self._check_input(raws, torch.uint8, 2 * self.block, burst=True)
+        return self._step(state, raws)
 
     def step_many_f32(self, state: dict, raws: torch.Tensor):
         """Burst form of :meth:`step_f32` over ``raws [k, 2T]``."""
-        return self._many(self.step_f32, state, raws)
+        self._check_input(raws, torch.float32, 2 * self.block, burst=True)
+        return self._step(state, raws)
 
     def step_many_iq(self, state: dict, iqs: torch.Tensor):
         """Burst form of :meth:`step_iq` over ``iqs [k, T]``."""
-        return self._many(self.step_iq, state, iqs)
+        self._check_input(iqs, torch.complex64, self.block, burst=True)
+        return self._step(state, torch.view_as_real(iqs.contiguous()).reshape(len(iqs), -1))
 
-    @staticmethod
-    def _many(step, state: dict, blocks: torch.Tensor):
-        outs = []
-        for blk in blocks:
-            state, o = step(state, blk)
-            outs.append(o)
-        return state, {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+    def _step(self, state: dict, raw: torch.Tensor):
+        """Interleaved u8 or f32 ``raw``, one block ``[2T]`` or a burst
+        ``[k, 2T]``: the graph's replay on the card, else the eager step."""
+        if self._graphs is not None:
+            return self._graphs.step(state, raw)
+        if raw.dim() == 2:
+            return run_burst(self._step_raw, state, raw)
+        return self._step_raw(state, raw)
 
     @staticmethod
     def unstack_outputs(outputs: dict, k: int) -> list[dict]:
@@ -505,7 +530,7 @@ class CompiledReceiver:
                 outputs[f"tap/{gk}"] = self._tap(zr[0], zi[0])
             if g.publishes_iq:
                 outputs[f"iq/{g.zmq_topic}"] = compress.compress_style1_planar(
-                    (zr[0], zi[0]), float(g.compress_scale)
+                    (zr[0], zi[0]), self._iq_scale[g.index]
                 )
             for bi in range(len(g.buckets)):
                 new_state[gk][f"b{bi}"] = self._bucket_step(

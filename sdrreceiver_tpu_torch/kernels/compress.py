@@ -11,7 +11,8 @@ The reference's float->signed-char casts truncate toward zero; values are
 truncated toward zero and saturated to [-128, 127], then packed in int32 as
 C promotes them.  Bit-exact with the JAX package on the same float input:
 the scale divides as a float32 tensor (a Python scalar divisor may become a
-multiply by its reciprocal on CUDA).
+multiply by its reciprocal on CUDA).  A caller that steps repeatedly builds
+that tensor once (:func:`scale_tensor`), so no step uploads it.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["compress_style1", "compress_style1_planar", "compress_style2"]
+__all__ = ["scale_tensor", "compress_style1", "compress_style1_planar", "compress_style2"]
 
 
 def _to_i8_trunc(v: torch.Tensor) -> torch.Tensor:
@@ -28,15 +29,21 @@ def _to_i8_trunc(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.trunc(v), -128.0, 127.0).to(torch.int32)
 
 
-def _scaled(v: torch.Tensor, scale: float) -> torch.Tensor:
-    s = torch.tensor(np.float32(scale), device=v.device)
+def scale_tensor(scale: float, device: torch.device | str) -> torch.Tensor:
+    """The divisor of :func:`compress_style1_planar`: float32 0-d on ``device``."""
+    return torch.tensor(np.float32(scale), device=device)
+
+
+def _scaled(v: torch.Tensor, scale: float | torch.Tensor) -> torch.Tensor:
+    s = scale if isinstance(scale, torch.Tensor) else scale_tensor(scale, v.device)
     return v / s * 128.0
 
 
 def compress_style1_planar(
-    x: tuple[torch.Tensor, torch.Tensor], scale: float = 1.0
+    x: tuple[torch.Tensor, torch.Tensor], scale: float | torch.Tensor = 1.0
 ) -> torch.Tensor:
-    """Planar ``x = (re, im)`` f32 ``[.., T]`` -> ``[.., T]`` uint8."""
+    """Planar ``x = (re, im)`` f32 ``[.., T]`` -> ``[.., T]`` uint8;
+    ``scale`` a number or a :func:`scale_tensor` on ``x``'s device."""
     re = _to_i8_trunc(_scaled(x[0], scale))
     im = _to_i8_trunc(_scaled(x[1], scale))
     return ((re & 0xF0) | ((im & 0xF0) >> 4)).to(torch.uint8)
