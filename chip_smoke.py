@@ -72,6 +72,20 @@ its result and failing the script (non-zero exit) if it fails:
      to the eager step's and to the wrappers' counts; step ms in turns,
      realtime factor, device time, idle share, CUDA rows and peak memory of
      both paths; the alt-rate runtime at ``--burst 1`` and 4
+ 20. the sharded receiver's step entries as CUDA graphs, one per phase and
+     card (the default for a mesh in one process; phases 15-17 run through
+     them): the flagship on 4x1, 2x2 and 1x4 at 1,536,000 and 384,000, the
+     IQ plan on 2x2 and the 66-channel plan on 2x4, on four shards of one
+     card (and on four cards where there are), each against the eager mesh
+     step (``cuda_graphs=False``): outputs and exported state bit-equal,
+     the same per-shard launches, ``step_many_u8`` k=4 bit-equal to 4 graph
+     steps; on the flagship the profiler's ``mix_cascade`` rows per replay
+     equal to the eager step's and the wrappers' counts, step ms in turns,
+     device time, idle share and peak memory of both; then ``run --mesh
+     2x1`` over loopback rtl_tcp (ZMQ audio bit-equal to the mesh
+     receiver's ``step_u8``), ``bench --mesh 4x1``, and a capture that
+     cannot hold its step fails it (``chip_smoke.py --capture-failure``, a
+     process of its own, exits non-zero)
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -1603,6 +1617,206 @@ def phase_graphs(dev, card: str, reps: int) -> dict:
     return out
 
 
+#: phase 20's sharded receivers: plan, block, mesh shapes; the flagship
+#: cases are timed and profiled
+MESH_GRAPH_CASES = (
+    ("flagship", BLOCK, ((4, 1), (2, 2), (1, 4))),
+    ("flagship", LIVE_BLOCK, ((4, 1), (2, 2), (1, 4))),
+    ("iq plan", IQ_BLOCK, ((2, 2),)),
+    ("cband66", 384_000, ((2, 4),)),
+)
+
+
+def mesh_layouts(dev) -> list[tuple[str, object]]:
+    """(name, n -> n devices): the card n times, and the four cards
+    (repeated past four) where there are."""
+    from sdrreceiver_tpu_torch.dist import local_devices
+
+    layouts = [("one card", lambda n: [dev] * n)]
+    if torch.cuda.device_count() >= 4:
+        layouts.append(("four cards", lambda n: local_devices(n, "cuda")))
+    return layouts
+
+
+def phase_mesh_graphs(dev, card: str, reps: int) -> dict:
+    """20. Every step entry of the sharded receiver in one process as CUDA
+    graphs, one per phase and card (``dist/meshgraph.py``), against the
+    eager mesh step (``cuda_graphs=False``) on the same blocks."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    out = {}
+    n = 4
+    for name, block, shapes in MESH_GRAPH_CASES:
+        if name == "cband66":
+            plan, taps = build_plan(parse_ini_text(cband_ini(66))), ()
+        else:
+            plan, taps = graph_plan(name)
+        blocks = torch.tensor(plan_stream(plan, n, block, seed=20), device=dev)
+        for lname, devs_of in mesh_layouts(dev):
+            for shape in shapes:
+                devs = devs_of(shape[0] * shape[1])
+                what = f"mesh graphs {name} block {block} {shape[0]}x{shape[1]} ({lname})"
+
+                def make(graphs: bool = True):
+                    return ShardedReceiver(plan, make_mesh(*shape, devs), block, emit_taps=taps,
+                                           cuda_graphs=graphs)
+
+                rxs = {"graph": make(), "eager": make(False)}
+                got, g_states = entry_run(rxs["graph"], "u8", blocks)
+                launches = path_launches(rxs["graph"])
+                ref, e_states = entry_run(rxs["eager"], "u8", blocks)
+                eager_launches = path_launches(rxs["eager"])
+                (entry,) = rxs["graph"]._graphs._entries.values()
+                n_graphs = 0 if entry.graph is None else entry.graph.graphs
+                n_moves = len(entry.body.transfers.bufs)
+                same = bit_equal(got, ref) and bit_equal(g_states, e_states)
+                print(f"{what}: graph vs eager over {n} blocks, outputs {sorted(got[0])} and "
+                      f"exported state bit-equal: {same}; launches graph {launches}, eager "
+                      f"{eager_launches} (expected {n} each); a replay runs {n_graphs} graphs "
+                      f"and {n_moves} transfers on {len(rxs['graph'].mesh.local())} device(s)")
+                if not same or launches != eager_launches or any(v != n for v in launches.values()):
+                    fail(f"{what}: the graphs differ from the eager mesh step or missed a launch")
+                gx = rxs["graph"]
+                st, many = gx.step_many_u8(gx.init_state(), blocks[:4])
+                burst = [{k: v.cpu().numpy() for k, v in o.items()}
+                         for o in gx.unstack_outputs(many, 4)]
+                same = bit_equal(burst, got[:4]) and bit_equal([gx.export_state(st)],
+                                                                g_states[3:4])
+                print(f"{what}: step_many_u8 k=4 vs 4 graph steps bit-equal: {same}")
+                if not same:
+                    fail(f"{what}: the burst graphs differ from 4 graph steps")
+                if name != "flagship":
+                    continue
+                turns = step_turns(rxs, "u8", blocks, reps)
+                ms = {k: float(np.mean(v)) for k, v in turns.items()}
+                prof = {k: step_rows(r, "u8", blocks) for k, r in rxs.items()}
+                kinds = {k: row_kinds(p["rows"]) for k, p in prof.items()}
+                mem = {"eager": peak_mib(lambda: make(False), "u8", blocks),
+                       "graph": peak_mib(make, "u8", blocks)}
+                for k in ("eager", "graph"):
+                    print(f"{what} {k}: {ms[k]:.4f} ms/step (medians in turns {turns[k]}), "
+                          f"realtime x{1000.0 * block / plan.fs / ms[k]:.2f}; profiled: "
+                          f"{prof[k]['wall_ms']:.4f} ms/step, device {prof[k]['device_us']:.1f} us "
+                          f"over {kinds[k]['rows']:g} CUDA rows, idle share "
+                          f"{1.0 - prof[k]['device_us'] / 1e3 / ms[k]:.3f}; rows {kinds[k]}; "
+                          f"wrapper launches per step {prof[k]['launched']}; peak device memory "
+                          f"{mem[k]:.1f} MiB {card}")
+                per_step = sum(prof["graph"]["launched"].values())
+                if kinds["graph"]["mix_cascade"] != kinds["eager"]["mix_cascade"] \
+                        or kinds["graph"]["mix_cascade"] != per_step or per_step != shape[0]:
+                    fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade "
+                         f"rows, the eager step {kinds['eager']['mix_cascade']:g}, the wrappers "
+                         f"count {per_step:g}")
+                out[(block, lname, shape)] = {
+                    "ms": ms, "mem": mem, "kinds": kinds, "graphs": n_graphs,
+                    "transfers": n_moves,
+                    "device_us": {k: p["device_us"] for k, p in prof.items()}}
+    return out
+
+
+def phase_mesh_cli(dev, card: str) -> dict:
+    """20 (end). ``run --mesh 2x1`` over a loopback rtl_tcp server at the
+    live block, paced: its ZMQ audio against the mesh receiver's
+    ``step_u8`` on the same bytes; ``bench --mesh 4x1``; and a capture that
+    fails raises."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver
+
+    d = WORK / "mesh_live"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    n = 12
+    raw, tones = flagship_stream(n, LIVE_BLOCK, seed=20)
+    watch = sorted(tones)[:3]
+    zport = free_port()
+    srv = LoopbackRtlTcp(list(raw), interval=LIVE_BLOCK / 1_536_000)
+    ini = d / "rtl.ini"
+    ini.write_text(flagship_ini(zport, f"127.0.0.1:{srv.port}"))
+    sub = Subscriber(zport, watch)
+    summary, rx = run_live(["-s", ini, "--device", DEVICE, "--block", LIVE_BLOCK,
+                            "--max-blocks", n, "--mesh", "2x1"])
+    frames = sub.close()
+    srv.join(timeout=15)
+    launches = path_launches(rx)
+    print(f"run --mesh 2x1 over rtl_tcp, paced: {summary['blocks']} blocks of {rx.block} on "
+          f"{[str(x) for x in rx.mesh.local()]}, cuda_graphs {summary['cuda_graphs']}, ring "
+          f"{summary['ring']}, rtl_tcp {summary['rtl_tcp']}; launches {launches} (expected "
+          f"{n} each); block_latency_ms p50 {summary['block_latency_ms']['p50']} {card}")
+    if summary["blocks"] != n or summary["ring"]["dropped"] or summary["rtl_tcp"]["reconnects"] \
+            or not summary["cuda_graphs"] or rx.n_time != 2 or len(launches) != 2 \
+            or any(v != n for v in launches.values()):
+        fail("run --mesh 2x1: blocks dropped, no graphs, or kernels not launched once a block")
+    direct = ShardedReceiver(rx.plan, (2, 1), rx.block, device=DEVICE)
+    ref = steps_audio(direct, torch.tensor(raw, device=dev))
+    rates = direct.rates()
+    got: dict[str, list[np.ndarray]] = {t: [] for t in watch}
+    for f in frames:
+        topic = f[0].decode()
+        if len(f) != 3 or topic not in got or struct.unpack("<I", f[1])[0] != rates[f"audio/{topic}"]:
+            fail(f"run --mesh 2x1: malformed frame {[len(x) for x in f]} {f[:2]}")
+        got[topic].append(np.frombuffer(f[2], np.int16))
+    for topic, parts in got.items():
+        k = len(parts)
+        same = k >= n - 1 and all(np.array_equal(a, b) for a, b in
+                                  zip(parts, [o[f"audio/{topic}"] for o in ref[n - k:]]))
+        print(f"run --mesh 2x1 ZMQ {topic}: {k} frames (of {n}), bit-equal to the mesh "
+              f"receiver's step_u8 on the same bytes: {same}")
+        if not same:
+            fail(f"run --mesh 2x1: {topic} frames differ from the mesh step_u8")
+        check_tone(np.concatenate(parts[-4:]), rates[f"audio/{topic}"], tones[topic],
+                   f"run --mesh 2x1 {topic}")
+
+    bench_ini = d / "flag.ini"
+    bench_ini.write_text(flagship_ini(free_port()))
+    out = {"run": summary}
+    for block in (LIVE_BLOCK, BLOCK):
+        r = cli("bench", "-s", bench_ini, "--device", DEVICE, "--mesh", "4x1", "--block", block,
+                "--blocks", 20)
+        print(f"bench --mesh 4x1 flagship block {block}: mode {r['mode']}, cuda_graphs "
+              f"{r['cuda_graphs']}, {r['msamples_per_second']} Msamples/s, realtime "
+              f"x{r['realtime_factor']} (device {r['device']}) {card}")
+        if r["mode"] != "sharded" or not r["cuda_graphs"] or r["block_samples"] != block:
+            fail("bench --mesh 4x1: not the sharded receiver on its graphs")
+        out[block] = r
+
+    # no fallback: a host read inside a phase breaks the capture, which
+    # raises and ends the process (in a process of its own)
+    res = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--capture-failure"],
+                         capture_output=True, text=True, env=dict(os.environ, PYTHONPATH=str(REPO)),
+                         cwd=str(REPO), timeout=300, check=False)
+    last = (res.stderr.strip().splitlines() or [""])[-1]
+    print(f"a host read inside a phase of a 2x1 mesh step: the process exited {res.returncode} "
+          f"({last[:160]})")
+    if res.returncode == 0 or "capture" not in res.stderr or "stepped" in res.stdout:
+        fail("a capture that cannot hold the mesh step did not fail the step")
+    return out
+
+
+def capture_failure_child() -> int:
+    """``chip_smoke.py --capture-failure``: a 2x1 flagship mesh whose step
+    reads a device value on the host inside a phase; its first step must
+    raise (the capture fails), which ends this process non-zero."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    rx = ShardedReceiver(build_plan(benchmark_config()), (2, 1), LIVE_BLOCK, device=DEVICE)
+    gather = rx._gather_time
+
+    def syncing(per_shard):
+        zs = gather(per_shard)
+        next(iter(zs.values()))[0].sum().item()
+        return zs
+
+    rx._gather_time = syncing
+    raw = torch.full((2 * LIVE_BLOCK,), 127, dtype=torch.uint8, device=DEVICE)
+    rx.step_u8(rx.init_state(), raw)
+    torch.cuda.synchronize()
+    print("stepped: the capture did not fail")
+    return 0
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA device")
@@ -1803,6 +2017,10 @@ def main() -> None:
     # ---- 19. the step entries as CUDA graphs ----
     phase_graphs(dev, card, reps)
 
+    # ---- 20. the mesh step entries as CUDA graphs, per phase and card ----
+    phase_mesh_graphs(dev, card, reps)
+    phase_mesh_cli(dev, card)
+
     kernels = [
         {"name": "dc_ingest", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
@@ -1878,4 +2096,6 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cli"]:
         sys.exit(cli_child(sys.argv[2:]))
+    if sys.argv[1:2] == ["--capture-failure"]:
+        sys.exit(capture_failure_child())
     main()

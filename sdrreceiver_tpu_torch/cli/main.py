@@ -20,9 +20,11 @@ JSON:
 
 ``--device`` picks the torch device (default ``cuda``; asking for it
 without a card is an error, never a fall back to the CPU).  On the card the
-receiver replays one CUDA graph per step (``CompiledReceiver``'s default).
-``--plain`` runs the kernels' plain PyTorch versions, eagerly
-(``use_kernels=False, cuda_graphs=False``).
+receiver replays one CUDA graph per step, and a mesh in one process one
+graph per phase and card (the receivers' default); a mesh across processes
+steps eagerly.  ``--plain`` runs the kernels' plain PyTorch versions,
+eagerly (``use_kernels=False, cuda_graphs=False``).  Each command's JSON
+summary says whether graphs ran (``"cuda_graphs"``).
 ``--mesh TxC`` runs the sharded receiver over T*C local devices (the cards,
 repeated when T*C exceeds their count; ``--device cpu``: the CPU T*C
 times).  ``--coordinator HOST:PORT`` with ``--num-processes`` and
@@ -85,7 +87,8 @@ def _build(args, taps=()):
     full_taps = set(_all_taps(plan))
     args._full_taps, args._full_plan = full_taps, plan
     args._multihost = args._egress_owner = None
-    kw = {"use_kernels": not args.plain}
+    # on the card the kernel path replays CUDA graphs; the plain one is eager
+    kw = {"use_kernels": not args.plain, "cuda_graphs": not args.plain}
     if args.coordinator and args.partition == "global":
         # one mesh over every process's devices: compute splits evenly,
         # the halos and the output gather cross processes, egress stays
@@ -116,6 +119,8 @@ def _build(args, taps=()):
         div = plan.block_divisor() * mesh.shape["time"]
         block = args.block or -(-plan.block_samples // div) * div
         taps = _all_taps(plan) if taps == "all" else taps
+        # across processes the step waits on gloo: eager
+        kw["cuda_graphs"] = kw["cuda_graphs"] and not mesh.multiprocess
         return cfg, plan, ShardedReceiver(plan, mesh, block, emit_taps=tuple(taps), **kw)
     if args.coordinator:
         from ..dist import multihost
@@ -151,10 +156,8 @@ def _build(args, taps=()):
         div = plan.block_divisor() * n_time
         block = args.block or -(-plan.block_samples // div) * div
         return cfg, plan, ShardedReceiver(plan, mesh, block, emit_taps=tuple(taps), **kw)
-    # on the card the kernel path replays CUDA graphs; the plain one is eager
     return cfg, plan, CompiledReceiver(
-        plan, args.block, emit_taps=tuple(taps), device=args.device,
-        cuda_graphs=not args.plain, **kw
+        plan, args.block, emit_taps=tuple(taps), device=args.device, **kw
     )
 
 
@@ -357,6 +360,7 @@ def cmd_process_file(args) -> int:
 
     out = metrics.summary()
     out["device"] = str(rx.device)
+    out["cuda_graphs"] = rx._graphs is not None
     if args._multihost:
         out["multihost"] = args._multihost
     out["outputs_written"] = sorted(written)
@@ -524,6 +528,7 @@ def cmd_run(args) -> int:
         summary = metrics.summary()
         summary.update(source_stats())
     summary["device"] = str(rx.device)
+    summary["cuda_graphs"] = rx._graphs is not None
     if args._multihost:
         summary["multihost"] = args._multihost
     print(json.dumps(summary))
@@ -585,6 +590,7 @@ def cmd_bench(args) -> int:
         "block_samples": rx.block,
         "blocks": args.blocks,
         "mode": "sharded" if args.mesh else ("kernels" if rx.use_kernels else "plain"),
+        "cuda_graphs": rx._graphs is not None,
         "msamples_per_second": round(sps / 1e6, 2),
         "realtime_factor": round(sps / plan.fs, 1),
         "cost_model": plan_cost_model(plan, rx.block),

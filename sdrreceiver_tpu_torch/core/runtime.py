@@ -91,7 +91,9 @@ def run_pipeline(
     """Drive a CompiledReceiver over a block source.
 
     Args:
-      rx: CompiledReceiver.
+      rx: CompiledReceiver, or a ``dist.ShardedReceiver`` (the same
+        entries; on the card a burst replays its mesh's phase graphs of k
+        steps).
       blocks: iterable of host (numpy) or device blocks: ``[2T]`` uint8 or
         float32 pairs, or ``[T]`` complex64.
       on_outputs: callback receiving each block's host outputs (numpy,

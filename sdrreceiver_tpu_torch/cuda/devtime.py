@@ -17,9 +17,10 @@ directory).  Only the package's public wrappers are used (``DcIngest``,
 ``CompiledReceiver.mix_cascades``), so any version of the port can be
 timed.  ``--steps`` profiles whole flagship steps instead: one device
 eager, as a CUDA graph and as a graph with stateful buckets (in turns),
-and 4x1, 2x2 and 1x4 meshes of the card: wall time, device time, CUDA rows
-per step, the device's idle share, and the rows each adds over the eager
-one-device step.
+and 4x1, 2x2 and 1x4 meshes of the card, eager and with a graph per phase
+(in turns): wall time, device time, CUDA rows per step, the device's idle
+share, and the rows each adds over the one-device step (eager, or the
+graph for the graph cases).
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -245,6 +246,7 @@ def step_profile(rx, raw, calls: int) -> dict:
     return {"wall_ms": ms, "profiled_ms": wall["ms"],
             "device_us": us, "rows_per_step": sum(rows.values()),
             "idle_share": 1.0 - us / 1e3 / ms,
+            "mix_cascade_us": sum(v for k, v in row_us.items() if "mix_cascade" in k),
             "rows": {k: [row_us[k], n] for k, n in rows.items()}}
 
 
@@ -255,7 +257,9 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
     mesh's bucket path, without the mesh), these three in turns (eager,
     graph, stateful, stateful, graph, eager; the two profiles of each
     averaged, rows from the second); then on 4x1, 2x2 and 1x4 meshes of
-    four shards of the card (eager).  Each case as :func:`step_profile`."""
+    four shards of the card, eager (``cuda_graphs=False``) and with a
+    graph per phase, in turns (eager, graph, graph, eager).  Each case as
+    :func:`step_profile`."""
     import numpy as np
     import torch
 
@@ -276,34 +280,48 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
         single = {"one device": CompiledReceiver(plan, block, device=dev, cuda_graphs=False),
                   "one device, graph": CompiledReceiver(plan, block, device=dev),
                   "one device, graph, stateful buckets": stateful}
-        turns: dict[str, list[dict]] = {k: [] for k in single}
-        for name in [*single, *reversed(single)]:
-            turns[name].append(step_profile(single[name], raw, calls))
-        for name, (a, b) in turns.items():
-            avg = {k: (a[k] + b[k]) / 2 for k in ("wall_ms", "profiled_ms", "device_us",
-                                                  "idle_share")}
-            out.append({"case": f"flagship block {block} {name}", **b, **avg,
-                        "turns_wall_ms": [a["wall_ms"], b["wall_ms"]]})
+        out += _in_turns(single, [*single, *reversed(single)], f"flagship block {block} ",
+                         raw, calls)
         for t, c in ((4, 1), (2, 2), (1, 4)):
-            rx = ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block)
-            out.append({"case": f"flagship block {block} mesh {t}x{c}",
-                        **step_profile(rx, raw, calls)})
+            mesh = {"": ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block,
+                                        cuda_graphs=False),
+                    ", graph": ShardedReceiver(plan, make_mesh(t, c, [dev] * 4), block)}
+            out += _in_turns(mesh, ["", ", graph", ", graph", ""],
+                             f"flagship block {block} mesh {t}x{c}", raw, calls)
+    return out
+
+
+def _in_turns(rxs: dict, order: list[str], prefix: str, raw, calls: int) -> list[dict]:
+    """:func:`step_profile` of each receiver of ``rxs`` in ``order`` (each
+    twice); per receiver one case ``prefix + name`` with the two profiles'
+    times averaged and the second one's rows."""
+    turns: dict[str, list[dict]] = {k: [] for k in rxs}
+    for name in order:
+        turns[name].append(step_profile(rxs[name], raw, calls))
+    out = []
+    for name, (a, b) in turns.items():
+        avg = {k: (a[k] + b[k]) / 2 for k in ("wall_ms", "profiled_ms", "device_us",
+                                              "idle_share", "mix_cascade_us")}
+        out.append({"case": prefix + name, **b, **avg,
+                    "turns_wall_ms": [a["wall_ms"], b["wall_ms"]]})
     return out
 
 
 def mesh_extra(steps: list[dict], top: int = 8) -> dict[str, list]:
     """For each mesh case of :func:`step_profiles` and each graph case, the
     rows whose device time grew most over the eager one-device step at the
-    same block (the graph with stateful buckets: over the graph):
-    ``[row, µs more, rows more]`` per step."""
+    same block (the graph with stateful buckets and a mesh's graphs: over
+    the one-device graph): ``[row, µs more, rows more]`` per step."""
     out = {}
     for c in steps:
         block, _, name = c["case"].partition(" mesh ")
+        over_graph = name.endswith(", graph")
         if not name:
             block, _, name = c["case"].partition(" one device, ")
+            over_graph = "stateful" in name
         if not name:
             continue
-        base = f"{block} one device" + (", graph" if "stateful" in name else "")
+        base = f"{block} one device" + (", graph" if over_graph else "")
         one = next(o["rows"] for o in steps if o["case"] == base)
         keys = set(c["rows"]) | set(one)
         diff = [[k, c["rows"].get(k, [0, 0])[0] - one.get(k, [0, 0])[0],
@@ -385,10 +403,12 @@ def main(argv=None) -> None:
         for c in steps:
             print(f"{c['case']:58s} wall {c['wall_ms']:8.3f} ms (profiled "
                   f"{c['profiled_ms']:8.3f}), device {c['device_us']:8.1f} us over "
-                  f"{c['rows_per_step']:.0f} CUDA rows, idle {c['idle_share']:.3f}")
+                  f"{c['rows_per_step']:.0f} CUDA rows (mix_cascade {c['mix_cascade_us']:.1f} "
+                  f"us), idle {c['idle_share']:.3f}")
         extra = mesh_extra(steps)
         for case, diff in extra.items():
-            base = "the graph" if "stateful" in case else "one device, eager"
+            over_graph = "stateful" in case or (" mesh " in case and case.endswith(", graph"))
+            base = "the one-device graph" if over_graph else "one device, eager"
             print(f"{case}: most device time added over {base}:")
             for k, dus, dn in diff:
                 print(f"    {dus:+9.1f} us {dn:+6.0f} rows  {k[:90]}")

@@ -11,10 +11,15 @@ block.
 The JAX package runs these functions inside ``shard_map`` over a ``time``
 mesh axis.  Here each takes the list of the time shards this process
 computes, in time order, each a planar ``(re, im)`` pair on its own
-device; the collectives are copies between those devices.  Where a mesh's
-shards span processes, ``span`` (``dist.multihost.ProcessSpan``) carries
-the transfers that cross a process boundary; ``span=None`` means this
-process computes every shard.
+device; the collectives are copies between those devices, made by
+``move(tensors, devices)`` (default :func:`to_devices`), once per exchange
+and for every shard together: ``dist.meshgraph`` passes a ``move`` that
+makes each call a boundary between two phases of CUDA graphs.  Nothing
+else in these functions crosses devices: per-shard constants come from the
+caller or are built once per device.  Where a mesh's shards span
+processes, ``span`` (``dist.multihost.ProcessSpan``) carries the transfers
+that cross a process boundary; ``span=None`` means this process computes
+every shard.
 
   * FIR/cascade halos: right shift of each shard's tail
     (:func:`right_halo`); shard 0 gets zeros, where the carried history goes
@@ -25,12 +30,15 @@ process computes every shard.
 
 from __future__ import annotations
 
-import numpy as np
+from typing import Callable, Sequence
+
 import torch
 
 from ..kernels import dc, fir, nco
 
 __all__ = [
+    "to_devices",
+    "halo_moves",
     "right_halo",
     "gather",
     "timeshard_cascade_local",
@@ -44,52 +52,79 @@ def _first(span) -> int:
     return 0 if span is None else span.lo
 
 
+Move = Callable[[Sequence[torch.Tensor], Sequence[torch.device]], list]
+
+
+def to_devices(ts: Sequence[torch.Tensor], devs: Sequence[torch.device]) -> list[torch.Tensor]:
+    """The eager transfer: each tensor on its device (itself where it is
+    there already)."""
+    return [t.to(d) for t, d in zip(ts, devs)]
+
+
+def halo_moves(xs: list[torch.Tensor], width: int, span=None, first=None):
+    """The transfers of :func:`right_halo`, for a caller that makes them
+    in one ``move`` with its own: ``(head, srcs, devices)``.  The halos are
+    ``[head] + move(srcs, devices)``, or ``move(srcs, devices)`` where
+    ``head`` is None (``first`` moved to global shard 0)."""
+    tails = [x[..., -width:] for x in xs]
+    head = None if span is None else span.halo_from_left(tails[-1])
+    srcs, devs = tails[:-1], [x.device for x in xs[1:]]
+    if first is not None and _first(span) == 0:
+        return None, [first] + srcs, [xs[0].device] + devs
+    return (torch.zeros_like(tails[0]) if head is None else head), srcs, devs
+
+
 def right_halo(xs: list[torch.Tensor], width: int, span=None) -> list[torch.Tensor]:
     """Each shard receives the last ``width`` time samples of its LEFT
     neighbour, on its own device; global shard 0 receives zeros.  ``xs[i]``
     is ``[..., T_local]``."""
-    tails = [x[..., -width:] for x in xs]
-    first = torch.zeros_like(tails[0]) if span is None else span.halo_from_left(tails[-1])
-    return [first] + [t.to(x.device) for t, x in zip(tails[:-1], xs[1:])]
+    head, srcs, devs = halo_moves(xs, width, span)
+    return [head] + to_devices(srcs, devs)
 
 
-def _bcast_from_last(vs: list[torch.Tensor], device, span=None) -> torch.Tensor:
-    """The last shard's value (the new carried state), on ``device``."""
-    v = vs[-1] if span is None else span.from_last(vs[-1])
-    return v.to(device)
-
-
-def gather(vs: list[torch.Tensor], device, span=None) -> list[torch.Tensor]:
+def gather(vs: list[torch.Tensor], device, span=None, move: Move = to_devices) -> list[torch.Tensor]:
     """Every shard's value, in time order, on ``device`` (an all-gather)."""
+    here = move(vs, [torch.device(device)] * len(vs))
     if span is None:
-        return [v.to(device) for v in vs]
-    return list(span.all_gather(torch.stack([v.to(device) for v in vs])).to(device))
+        return here
+    return list(span.all_gather(torch.stack(here)).to(device))
 
 
 def timeshard_cascade_local(
     hists: list[torch.Tensor],
     xs: list[tuple[torch.Tensor, torch.Tensor]],
-    rtaps: torch.Tensor,
+    rtaps,
     span=None,
+    move: Move = to_devices,
 ) -> tuple[list[torch.Tensor], list[tuple[torch.Tensor, torch.Tensor]]]:
     """Half-band /2 cascade over time shards.
 
     ``hists`` are the carried per-stage histories ``[2, C, taps-1]`` (only
     global shard 0 consumes them); ``xs`` the shards, each ``[C,
-    T_local]`` planes with ``T_local`` divisible by ``2**len(hists)``.
-    Returns (new histories on ``hists``' device, per-shard outputs)."""
+    T_local]`` planes with ``T_local`` divisible by ``2**len(hists)``;
+    ``rtaps`` the prepared taps, or a list of them on each shard's device.
+    One transfer per stage: the halos, the carried history to shard 0 and
+    the last shard's tail (the new history).  Returns (new histories on
+    ``hists``' device, per-shard outputs)."""
+    rts = (list(rtaps) if isinstance(rtaps, (list, tuple))
+           else [rtaps.to(x[0].device) for x in xs])
     ys = list(xs)
     new_hists = []
     for hist in hists:
         width = hist.shape[-1]
         y2 = [torch.stack(y) for y in ys]
-        lefts = right_halo(y2, width, span)
-        if _first(span) == 0:
-            lefts[0] = hist.to(lefts[0].device)
-        new_hists.append(_bcast_from_last([y[..., -width:] for y in y2], hist.device, span))
+        head, srcs, devs = halo_moves(y2, width, span, first=hist)
+        last = y2[-1][..., -width:]
+        if span is None:
+            moved = move(srcs + [last], devs + [hist.device])
+            new_hists.append(moved.pop())
+        else:
+            moved = move(srcs, devs)
+            new_hists.append(span.from_last(last).to(hist.device))
+        lefts = moved if head is None else [head] + moved
         ys = [
-            fir.conv_block_planar(left, y, rtaps.to(left.device), stride=2)[1]
-            for left, y in zip(lefts, ys)
+            fir.conv_block_planar(left, y, rt, stride=2)[1]
+            for left, y, rt in zip(lefts, ys, rts)
         ]
     return new_hists, ys
 
@@ -100,8 +135,10 @@ def timeshard_mix_local(
     fs: int,
     t_local: int,
     span=None,
+    move: Move = to_devices,
 ) -> tuple[dict, list[tuple[torch.Tensor, torch.Tensor]]]:
-    """NCO mix over time shards, with no traffic between them.
+    """NCO mix over time shards, with no traffic between them but the
+    state's way out to them (one transfer).
 
     Shard ``i`` mixes from phase ``phase0 + (i * (f t_local mod fs) mod fs)``
     and the new carried phase is ``phase0 + (n * (f t_local mod fs) mod
@@ -110,10 +147,17 @@ def timeshard_mix_local(
     ``[C, T_local]`` planes."""
     n = len(xs) if span is None else span.n
     step = nco.block_step_mod(state, fs, t_local)
-    ys = []
+    keys = list(state)
+    srcs, devs = [], []
     for k, x in enumerate(xs):
-        local = {key: v.to(x[0].device) for key, v in state.items()}
-        local["phase"] = ((state["phase"] + ((_first(span) + k) * step) % fs) % fs).to(x[0].device)
+        local = dict(state)
+        local["phase"] = (state["phase"] + ((_first(span) + k) * step) % fs) % fs
+        srcs += [local[key] for key in keys]
+        devs += [x[0].device] * len(keys)
+    moved = iter(move(srcs, devs))
+    ys = []
+    for x in xs:
+        local = {key: next(moved) for key in keys}
         ys.append(nco.mix_block_planar(local, x, fs)[1])
     new_state = dict(state)
     new_state["phase"] = (state["phase"] + (n * step) % fs) % fs
@@ -125,6 +169,7 @@ def timeshard_dc_local(
     xs: list[tuple[torch.Tensor, torch.Tensor]],
     alpha: float = dc.DEFAULT_ALPHA,
     span=None,
+    move: Move = to_devices,
 ) -> tuple[torch.Tensor, list[tuple[torch.Tensor, torch.Tensor]]]:
     """DC-EMA removal over time shards.
 
@@ -133,20 +178,22 @@ def timeshard_dc_local(
     zero start.  Across shards: each reduces to the affine map ``m -> A m +
     B`` with ``A = a^T_local``; the gathered ``B`` of every shard composes
     each shard's starting mean from the carried one, in the JAX package's
-    order of float operations.  Returns (new mean on ``mean``'s device,
-    per-shard outputs)."""
+    order of float operations.  Two transfers: the totals to ``mean``'s
+    device, the starting means back.  ``A`` and the per-shard ramp
+    ``a^(n+1)`` are built once per device and size.  Returns (new mean on
+    ``mean``'s device, per-shard outputs)."""
     x2s = [torch.stack(x) for x in xs]
     t_local = x2s[0].shape[-1]
     vs = [dc.zero_prefix(x2, alpha) for x2 in x2s]
-    b_tot = gather([v[..., -1] for v in vs], mean.device, span)
-    a_t = torch.tensor(np.float32(dc.decay_pow(alpha, float(t_local))), device=mean.device)
+    b_tot = gather([v[..., -1] for v in vs], mean.device, span, move)
+    a_t = dc.decay_scalar(alpha, t_local, mean.device)
     starts = [mean]  # starts[j]: the mean entering shard j
     for b in b_tot:
         starts.append(a_t * starts[-1] + b)
+    m0s = move([starts[_first(span) + k] for k in range(len(xs))], [x2.device for x2 in x2s])
     ys = []
-    for k, (x2, v) in enumerate(zip(x2s, vs)):
-        a_n1 = dc._decay(alpha, torch.arange(1, t_local + 1, device=x2.device))
-        m = a_n1[None, :] * starts[_first(span) + k].to(x2.device)[:, None] + v
+    for x2, v, m0 in zip(x2s, vs, m0s):
+        m = dc.decay_ramp(alpha, t_local, x2.device)[None, :] * m0[:, None] + v
         y = x2 - m
         ys.append((y[0], y[1]))
     return starts[-1], ys

@@ -50,6 +50,12 @@ class Mesh:
         """The time shards this process computes."""
         return [i for i, r in enumerate(self.ranks) if r[0] == self.rank]
 
+    def local(self) -> list[torch.device]:
+        """The distinct devices of this process's shards in mesh order, the
+        home device first: a card that holds several shards is listed once
+        (``dist.meshgraph`` captures one graph per phase and card)."""
+        return list(dict.fromkeys(d for i in self.rows() for d in self.devices[i]))
+
     @property
     def home(self) -> torch.device:
         """The device that holds this process's state and outputs: that of

@@ -22,22 +22,38 @@ step (``CompiledReceiver._bucket_step``) unchanged, on the stateful path
 State and outputs live on the home device in exactly the single-device
 layout: ``export_state`` / ``import_state``, the checkpoints and the burst
 entries are inherited, and a checkpoint crosses between sharded and
-unsharded receivers of either package.  The sharded step runs eagerly, not
-as a CUDA graph (``cuda_graphs=False``).
+unsharded receivers of either package.
+
+Every transfer between devices goes through ``ShardedReceiver._move``,
+once per exchange for every shard together: the raw block out to the
+shards, the DC totals in and the starting means out, the halos (with the
+shard NCO phases), the input tail and the group outputs in, and per split
+bucket its channel ranges out and back.  Between two transfers each card
+computes on its own, so on the card (``cuda_graphs=True``, the default for
+a mesh in one process) each step entry replays one CUDA graph per phase and
+card with the transfers as copies between static buffers in between
+(``dist.meshgraph``), the counterpart of the JAX package's one compiled
+``shard_map`` step.  ``cuda_graphs=False`` runs the same step eagerly, its
+transfers as plain ``.to()`` copies.  A mesh across processes moves data
+through gloo inside the step and runs eagerly: it refuses
+``cuda_graphs=True``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import numpy as np
 import torch
 
 from ..graph.compiler import CompiledReceiver, _is_planar_pair
+from ..graph.cudagraph import flatten
 from ..graph.plan import ReceiverPlan
 from ..kernels import ingest
 from . import halo
 from .mesh import CHAN_AXIS, TIME_AXIS, Mesh, local_devices, make_mesh
+from .meshgraph import MeshGraphs
 
 __all__ = ["ShardedReceiver"]
 
@@ -57,6 +73,16 @@ def _map_states(fn, trees: list, prefix: str):
     if isinstance(t0, list):
         return [_map_states(fn, [t[i] for t in trees], f"{prefix}{i}/") for i in range(len(t0))]
     return fn(prefix[:-1], trees)
+
+
+def _refill(tree, leaves):
+    """``tree``'s nested dicts/lists around the next leaves of the iterator
+    ``leaves`` (in :func:`~..graph.cudagraph.flatten` order)."""
+    if isinstance(tree, dict):
+        return {k: _refill(v, leaves) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_refill(v, leaves) for v in tree]
+    return next(leaves)
 
 
 class _ChanSlice:
@@ -84,7 +110,11 @@ class ShardedReceiver(CompiledReceiver):
     shape ``(n_time, n_chan)`` over :func:`~.mesh.local_devices` of
     ``device`` (the card unless ``device="cpu"``).  Takes every
     CompiledReceiver option; the block must be a multiple of the plan's
-    divisor times ``n_time``."""
+    divisor times ``n_time``.  ``cuda_graphs`` defaults to True for a mesh
+    in one process (phase graphs on the card, eager on the CPU) and to
+    False for a mesh across processes, which refuses True."""
+
+    _graphs_type = MeshGraphs
 
     def __init__(
         self,
@@ -110,14 +140,20 @@ class ShardedReceiver(CompiledReceiver):
             )
         self._rows = mesh.rows()
         self._span = None
+        # every transfer of the step, one call per exchange (swapped by
+        # dist.meshgraph for its static buffers and phase boundaries)
+        self._move = halo.to_devices
+        cuda_graphs = kwargs.pop("cuda_graphs", not mesh.multiprocess)
         if mesh.multiprocess:
             from .multihost import ProcessSpan
 
+            if cuda_graphs:
+                raise ValueError(
+                    "a mesh across processes runs eagerly (its transfers wait on gloo "
+                    "inside the step): cuda_graphs=True is not supported"
+                )
             self._span = ProcessSpan(mesh)
-        if kwargs.pop("cuda_graphs", False):
-            raise ValueError("ShardedReceiver runs eagerly: cuda_graphs=True is not supported")
-        # eager: a step copies between devices and, across processes, waits on gloo
-        super().__init__(plan, block, device=mesh.home, cuda_graphs=False, **kwargs)
+        super().__init__(plan, block, device=mesh.home, cuda_graphs=cuda_graphs, **kwargs)
         # each bucket of at least n_chan channels: contiguous ranges over
         # the chan devices of this process's first time row
         self._chan_parts: dict[str, list] = {}
@@ -135,6 +171,22 @@ class ShardedReceiver(CompiledReceiver):
                         parts.append((lo, hi, sub, _ChanSlice(self, bk, lo, hi, dev)))
                     self._chan_parts[bk] = parts
 
+    # --------------------------------------------------------- transfers
+    @contextlib.contextmanager
+    def _transfers(self, move):
+        """Make the step's transfers through ``move`` (``dist.meshgraph``'s
+        static buffers and phase boundaries) while the context lasts."""
+        prev, self._move = self._move, move
+        try:
+            yield
+        finally:
+            self._move = prev
+
+    def _build_kernels(self) -> None:
+        super()._build_kernels()
+        # the stateful cascade's taps on each time shard's device, built once
+        self._hb1_shards = [self._hb1.to(dev) for _, dev in self._shard_devices()]
+
     # ------------------------------------------------------- time shards
     def _shard_devices(self) -> list[tuple[int, torch.device]]:
         return [(i, self.mesh.devices[i][0]) for i in self._rows]
@@ -143,66 +195,98 @@ class ShardedReceiver(CompiledReceiver):
         """This process's time shards of ``raw`` on their devices, planar,
         with DC removed by the halo composition."""
         t_local = self.block // self.n_time
-        xs = []
-        for i, dev in self._shard_devices():
-            r = raw[2 * i * t_local:2 * (i + 1) * t_local].to(dev)
-            xs.append(ingest.u8_iq_to_planar(r) if r.dtype == torch.uint8
-                      else ingest.f32_pairs_to_planar(r))
+        shards = self._shard_devices()
+        rs = self._move([raw[2 * i * t_local:2 * (i + 1) * t_local] for i, _ in shards],
+                        [dev for _, dev in shards])
+        xs = [ingest.u8_iq_to_planar(r) if r.dtype == torch.uint8
+              else ingest.f32_pairs_to_planar(r) for r in rs]
         if not self.plan.dc_correct:
             return state["dc"], xs
-        return halo.timeshard_dc_local(state["dc"], xs, span=self._span)
+        return halo.timeshard_dc_local(state["dc"], xs, span=self._span, move=self._move)
 
     def _input_tail(self, xs, n: int | None) -> torch.Tensor:
         t_local = self.block // self.n_time
         w = min(n, t_local) if n else t_local
         k = min(-(-n // t_local), self.n_time) if n else self.n_time
         tails = halo.gather([torch.stack((xr[-w:], xi[-w:])) for xr, xi in xs],
-                            self.device, self._span)
+                            self.device, self._span, self._move)
         return torch.cat(tails[-k:], dim=-1)[:, -n:] if n else torch.cat(tails, dim=-1)
 
-    def _left_halos(self, state: dict, xs, p: int) -> list[torch.Tensor]:
-        """The left neighbour's last ``p`` inputs; global shard 0's from the
-        carried xtail."""
-        lefts = halo.right_halo([torch.stack((xr[-p:], xi[-p:])) for xr, xi in xs], p, self._span)
-        if self._rows[0] == 0:
-            lefts[0] = state["xtail"][:, -p:].to(lefts[0].device)
-        return lefts
+    def _left_halos(self, state: dict, xs, p: int, phases: torch.Tensor):
+        """The left neighbour's last ``p`` inputs (global shard 0's from the
+        carried xtail) and ``phases`` on every shard, in one transfer."""
+        head, srcs, devs = halo.halo_moves(
+            [torch.stack((xr[-p:], xi[-p:])) for xr, xi in xs], p, self._span,
+            first=state["xtail"][:, -p:],
+        )
+        shard_devs = [dev for _, dev in self._shard_devices()]
+        moved = self._move(srcs + [phases] * len(xs), devs + shard_devs)
+        lefts, starts = moved[:len(srcs)], moved[len(srcs):]
+        return (lefts if head is None else [head] + lefts), starts
 
-    def _gather_time(self, parts) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-shard planar ``[C, t]`` pairs -> the whole block on the home
-        device."""
-        z = torch.cat(halo.gather([torch.stack(p) for p in parts], self.device, self._span), dim=-1)
-        return z[0], z[1]
+    def _gather_time(self, per_shard: dict) -> dict:
+        """Per group, per-shard planar ``[C, t]`` pairs -> the whole block
+        on the home device, every group in one transfer."""
+        stacked = [[torch.stack(p) for p in ps] for ps in per_shard.values()]
+        if self._span is None:
+            here = iter(halo.gather([t for ts in stacked for t in ts], self.device,
+                                    move=self._move))
+            gathered = [[next(here) for _ in ts] for ts in stacked]
+        else:  # every process's shards; gloo gathers one shape at a time
+            gathered = [halo.gather(ts, self.device, self._span, self._move) for ts in stacked]
+        zs = {}
+        for gi, parts in zip(per_shard, gathered):
+            z = torch.cat(parts, dim=-1)
+            zs[f"g{gi}"] = (z[0], z[1])
+        return zs
 
     def _stateful_group(self, gs: dict, xs):
         t_local = self.block // self.n_time
-        nco_state, zs = halo.timeshard_mix_local(gs["nco"], xs, self.plan.fs, t_local, self._span)
-        hists, zs = halo.timeshard_cascade_local(gs["cascade"], zs, self._hb1, self._span)
+        nco_state, zs = halo.timeshard_mix_local(gs["nco"], xs, self.plan.fs, t_local,
+                                                 self._span, self._move)
+        hists, zs = halo.timeshard_cascade_local(gs["cascade"], zs, self._hb1_shards,
+                                                 self._span, self._move)
         return nco_state, hists, zs
 
     # ------------------------------------------------------ chan ranges
     def _bucket_step(self, g, bi: int, bs: dict, z, outputs: dict, state: dict) -> dict:
+        """A bucket of at least ``n_chan`` channels: its channel ranges out
+        to the chan devices in one transfer, the single-device bucket step
+        on each, the outputs and new state back in one."""
         bk = f"g{g.index}/b{bi}"
         parts = self._chan_parts.get(bk)
         if parts is None:
             return super()._bucket_step(g, bi, bs, z, outputs, state)
-        new_parts, pcm = [], []
-        for lo, hi, sub, part in parts:
+        srcs, devs, sub_trees = [], [], []
+        for lo, hi, _, part in parts:
+            sub_bs = _map_states(
+                lambda key, v: v[0].narrow(_chan_dim(key), lo, hi - lo), [bs], bk + "/"
+            )
+            sub_trees.append(sub_bs)
+            leaves = [v for _, v in flatten(sub_bs)] + [z[0], z[1]]
+            srcs += leaves
+            devs += [part.device] * len(leaves)
+        moved = iter(self._move(srcs, devs))
+        results = []
+        for (_, _, sub, part), sub_bs in zip(parts, sub_trees):
             sub_g = dataclasses.replace(
                 g, buckets=tuple(sub if k == bi else b for k, b in enumerate(g.buckets))
             )
-            sub_bs = _map_states(
-                lambda key, v: v[0].narrow(_chan_dim(key), lo, hi - lo).to(part.device),
-                [bs], bk + "/",
-            )
+            sub_bs = _refill(sub_bs, moved)
+            zp = (next(moved), next(moved))
             outs: dict = {}
-            new_parts.append(part._bucket_step(
-                sub_g, bi, sub_bs, (z[0].to(part.device), z[1].to(part.device)), outs, state
-            ))
-            pcm.append(outs.pop(f"pcm/{bk}").to(self.device))
-            outputs.update({k: v.to(self.device) for k, v in outs.items()})
+            new = part._bucket_step(sub_g, bi, sub_bs, zp, outs, state)
+            results.append((new, outs))
+        back = [v for new, outs in results
+                for v in [t for _, t in flatten(new)] + list(outs.values())]
+        home = iter(self._move(back, [self.device] * len(back)))
+        new_parts, pcm = [], []
+        for new, outs in results:
+            new_parts.append(_refill(new, home))
+            outs = {k: next(home) for k in outs}
+            pcm.append(outs.pop(f"pcm/{bk}"))
+            outputs.update(outs)
         outputs[f"pcm/{bk}"] = torch.cat(pcm)
         return _map_states(
-            lambda key, vs: torch.cat([v.to(self.device) for v in vs], dim=_chan_dim(key)),
-            new_parts, bk + "/",
+            lambda key, vs: torch.cat(vs, dim=_chan_dim(key)), new_parts, bk + "/",
         )

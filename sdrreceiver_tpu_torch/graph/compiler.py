@@ -149,9 +149,10 @@ class CompiledReceiver:
     eagerly.  On the CPU the step is eager."""
 
     # one device computes the block as one time shard; dist.ShardedReceiver
-    # sets its mesh and its time-shard count
+    # sets its mesh and its time-shard count, and its graphs per phase
     mesh = None
     n_time = 1
+    _graphs_type = StepGraphs
 
     def __init__(
         self,
@@ -196,7 +197,7 @@ class CompiledReceiver:
             )
         self._build_consts()
         use_graphs = self.cuda_graphs and self.device.type == "cuda"
-        self._graphs = StepGraphs(self) if use_graphs else None
+        self._graphs = self._graphs_type(self) if use_graphs else None
 
     # ------------------------------------------------------------ checks
     def _check_input(self, raw: torch.Tensor, dtype: torch.dtype, n: int,
@@ -498,15 +499,16 @@ class CompiledReceiver:
         ((xr, xi),) = xs
         return torch.stack([xr[-n:], xi[-n:]]) if n else torch.stack([xr, xi])
 
-    def _left_halos(self, state: dict, xs, p: int) -> list[torch.Tensor]:
-        """Each shard's ``p`` warm-up inputs, planar ``[2, p]``: the carried
-        xtail's last ``p`` here."""
-        return [state["xtail"][:, -p:]]
+    def _left_halos(self, state: dict, xs, p: int, phases: torch.Tensor):
+        """Each shard's ``p`` warm-up inputs, planar ``[2, p]``, and the
+        front's NCO ``phases`` on each shard's device: the carried xtail's
+        last ``p`` and the phases themselves here."""
+        return [state["xtail"][:, -p:]], [phases]
 
-    def _gather_time(self, parts) -> tuple[torch.Tensor, torch.Tensor]:
-        """Per-shard planar ``[C, t]`` pairs -> the whole block."""
-        (z,) = parts
-        return z
+    def _gather_time(self, per_shard: dict) -> dict:
+        """Per group index, per-shard planar ``[C, t]`` pairs -> ``{g<i>:
+        (zr, zi)}`` over the whole block."""
+        return {f"g{gi}": parts[0] for gi, parts in per_shard.items()}
 
     def _stateful_group(self, gs: dict, xs):
         """A group's mix + half-band cascade on its carried NCO phase and
@@ -551,14 +553,15 @@ class CompiledReceiver:
         t_local = self.block // self.n_time
         per_shard: dict[int, list] = {}
         for kerns, p, gidxs in self._fronts:
-            lefts = self._left_halos(state, xs, p)
             phases = torch.cat([state[f"g{i}"]["nco"]["phase"] for i in gidxs])
-            f_mod = kerns[0].f_mod.to(self.device)
-            for (i, dev), mc, (xr, xi), (lr, li) in zip(self._shard_devices(), kerns, xs, lefts):
+            lefts, starts = self._left_halos(state, xs, p, phases)
+            for (i, _), mc, ph, (xr, xi), (lr, li) in zip(self._shard_devices(), kerns, starts,
+                                                          xs, lefts):
                 # shard i's NCO starts i * t_local samples into the block
-                ph = phases if i == 0 else (phases + i * (f_mod * t_local % fs) % fs) % fs
+                if i:
+                    ph = (ph + i * (mc.f_mod * t_local % fs) % fs) % fs
                 yr, yi = self._run(
-                    mc, phase_back(ph, f_mod, fs, p).to(dev),
+                    mc, phase_back(ph, mc.f_mod, fs, p),
                     torch.cat([lr, xr])[None], torch.cat([li, xi])[None],
                 )
                 for gi, d, zr, zi in zip(gidxs, mc.depths, mc.split(yr, t_local + p),
@@ -589,8 +592,7 @@ class CompiledReceiver:
                 # path on the carried histories
                 ngs["nco"], ngs["cascade"], per_shard[g.index] = self._stateful_group(gs, xs)
             new_state[gk] = ngs
-        zs = {f"g{gi}": self._gather_time(parts) for gi, parts in per_shard.items()}
-        return new_state, zs
+        return new_state, self._gather_time(per_shard)
 
     def _prev_group_tail(self, state: dict, g, n_out: int):
         """Last ``n_out`` group-rate samples of the PREVIOUS block's group

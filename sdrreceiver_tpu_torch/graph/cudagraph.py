@@ -124,9 +124,9 @@ def run_burst(step: Step, state: dict, raws: torch.Tensor) -> tuple[dict, dict]:
 
 
 class _Entry:
-    """One entry's static input, its body, and on the card its graph, the
-    outputs the graph writes and the launches one replay makes (wrapper,
-    count)."""
+    """One entry's static input, its body, and on the card its graph (or
+    anything with a ``replay()``), the outputs the graph writes and the
+    launches one replay makes (wrapper, count)."""
 
     def __init__(self, inp, body, graph=None, outputs=None, launches=()):
         self.input, self.body, self.graph = inp, body, graph
@@ -169,6 +169,13 @@ class StepGraphs:
         if self.state is None:
             self.state = rx.init_state()
         inp = torch.empty(raw.shape, dtype=raw.dtype, device=rx.device)
+        body = self._body(inp)
+        if rx.device.type != "cuda":
+            return _Entry(inp, body)
+        return self._capture(inp, raw, body)
+
+    def _body(self, inp: torch.Tensor):
+        rx = self.rx
 
         def body(state: dict | None = None) -> dict:
             """What the graph records: the step (a burst: k steps) on
@@ -180,13 +187,13 @@ class StepGraphs:
             write_back(state, new, outputs)
             return outputs
 
-        if rx.device.type != "cuda":
-            return _Entry(inp, body)
-        return self._capture(inp, raw, body)
+        return body
 
-    def _capture(self, inp: torch.Tensor, raw: torch.Tensor, body) -> _Entry:
+    def _launch_counts(self):
+        """``(restore, recorded)`` over the kernel wrappers' ``launches``
+        as they stand now: ``restore()`` puts them back, ``recorded()``
+        gives the (wrapper, launches) made since."""
         rx = self.rx
-        dev = rx.device
         wrappers: list[Any] = [rx.dc_ingest, *(mc for mc, _ in rx.mix_cascades().values())]
         counts = [w.launches for w in wrappers]
 
@@ -194,6 +201,15 @@ class StepGraphs:
             for w, n in zip(wrappers, counts):
                 w.launches = n
 
+        def recorded() -> tuple:
+            return tuple((w, w.launches - n) for w, n in zip(wrappers, counts) if w.launches != n)
+
+        return restore, recorded
+
+    def _capture(self, inp: torch.Tensor, raw: torch.Tensor, body) -> _Entry:
+        rx = self.rx
+        dev = rx.device
+        restore, recorded = self._launch_counts()
         with torch.cuda.device(dev):
             inp.copy_(raw)
             side = torch.cuda.Stream(dev)
@@ -211,6 +227,6 @@ class StepGraphs:
             # thread_local: a live source's threads may use the card meanwhile
             with torch.cuda.graph(graph, pool=self.pool, capture_error_mode="thread_local"):
                 outputs = body()
-        launches = tuple((w, w.launches - n) for w, n in zip(wrappers, counts) if w.launches != n)
+        launches = recorded()
         restore()
         return _Entry(inp, body, graph, outputs, launches)

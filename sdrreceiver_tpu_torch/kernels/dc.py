@@ -16,6 +16,11 @@ decay of the carried mean.  Every power of ``a`` is taken in float64 and
 rounded once to float32: ``a`` itself in float32 is 1 - 1e-6 to within 3%
 of ``alpha``, which over a 1.5 Msample block would misplace the mean by
 several percent.
+
+The constants of a block size (the prefix matrix, the row decays, the
+carry ramp) are built once per (device, size) and kept, read-only
+(:func:`decay_ramp`, :func:`decay_scalar`), so a step makes no host
+upload and a CUDA graph can hold it.
 """
 
 from __future__ import annotations
@@ -31,6 +36,8 @@ __all__ = [
     "DEFAULT_ALPHA",
     "decay_pow",
     "dc_init_planar",
+    "decay_ramp",
+    "decay_scalar",
     "zero_prefix",
     "dc_block_planar",
 ]
@@ -61,6 +68,29 @@ def _prefix_matrix(alpha: float, b: int) -> np.ndarray:
     return np.triu(w).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def decay_ramp(alpha: float, n: int, device: torch.device) -> torch.Tensor:
+    """``a^1 .. a^n`` as float32 ``[n]`` on ``device`` (built once per
+    device and length)."""
+    return _decay(alpha, torch.arange(1, n + 1, device=device))
+
+
+@functools.lru_cache(maxsize=64)
+def decay_scalar(alpha: float, n: int, device: torch.device) -> torch.Tensor:
+    """``a^n`` as a float32 scalar tensor on ``device``, rounded from float64
+    on the host (built once per device and ``n``)."""
+    return torch.tensor(np.float32(decay_pow(alpha, float(n))), device=device)
+
+
+@functools.lru_cache(maxsize=64)
+def _prefix_consts(alpha: float, b: int, nb: int, device: torch.device):
+    """:func:`zero_prefix`'s constants for ``nb`` rows of ``b`` on
+    ``device``: the prefix matrix, ``a^(-Bk)``, ``a^(Bk)`` and ``a^(j+1)``."""
+    kb = torch.arange(nb, device=device)
+    return (torch.as_tensor(_prefix_matrix(alpha, b), device=device),
+            _decay(alpha, -b * kb), _decay(alpha, b * kb), decay_ramp(alpha, b, device))
+
+
 def dc_init_planar(device: torch.device | str) -> torch.Tensor:
     """Zero initial mean as planar ``[2]`` f32 (re, im)."""
     return torch.zeros(2, dtype=torch.float32, device=device)
@@ -73,19 +103,14 @@ def zero_prefix(x: torch.Tensor, alpha: float = DEFAULT_ALPHA) -> torch.Tensor:
     nb = -(-t_len // b)
     pad = nb * b - t_len
     lead = x.shape[:-1]
-    dev = x.device
     xb = torch.nn.functional.pad(x, (0, pad)).reshape(*lead, nb, b)
-    w = torch.as_tensor(_prefix_matrix(alpha, b), device=dev)
+    w, a_neg, a_pos, a_j1 = _prefix_consts(alpha, b, nb, x.device)
     with no_tf32():
         v = xb @ w  # v[k, j] = alpha * sum_{i<=j} a^(j-i) x[k, i]
     # across rows: P[k] = sum_{t<=k} a^(B(k-t)) bk[t] = a^(Bk) cumsum(bk a^(-Bt))
-    kb = torch.arange(nb, device=dev)
-    p = torch.cumsum(v[..., -1] * _decay(alpha, -b * kb), dim=-1) * _decay(
-        alpha, b * kb
-    )
+    p = torch.cumsum(v[..., -1] * a_neg, dim=-1) * a_pos
     # carry into row k is m_end(k-1); it decays as a^(j+1) inside row k
     e = torch.cat([torch.zeros_like(p[..., :1]), p[..., :-1]], dim=-1)
-    a_j1 = _decay(alpha, torch.arange(1, b + 1, device=dev))
     m = a_j1 * e[..., None] + v
     return m.reshape(*lead, nb * b)[..., :t_len]
 
@@ -101,7 +126,6 @@ def dc_block_planar(
     x2 = torch.stack(x)
     t_len = x2.shape[-1]
     v = zero_prefix(x2, alpha)
-    a_n1 = _decay(alpha, torch.arange(1, t_len + 1, device=x2.device))
-    m = a_n1[None, :] * mean[:, None] + v
+    m = decay_ramp(alpha, t_len, x2.device)[None, :] * mean[:, None] + v
     y = x2 - m
     return m[:, -1].contiguous(), (y[0], y[1])

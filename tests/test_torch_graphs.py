@@ -300,10 +300,11 @@ def test_constructor_refusals_and_defaults():
     rx = CompiledReceiver(plan, 49152, device="cpu", use_kernels=False, cuda_graphs=False)
     assert rx._graphs is None
     assert CompiledReceiver(plan, 49152, device="cpu")._graphs is None  # eager on the CPU
+    # a mesh in one process takes the graphs on the card (dist/meshgraph.py,
+    # tests/test_torch_meshgraphs.py); on the CPU it steps eagerly too
     sharded = ShardedReceiver(plan, (2, 1), 49152, device="cpu")
-    assert sharded.cuda_graphs is False and sharded._graphs is None
-    with pytest.raises(ValueError, match="ShardedReceiver runs eagerly"):
-        ShardedReceiver(plan, (2, 1), 49152, device="cpu", cuda_graphs=True)
+    assert sharded.cuda_graphs is True and sharded._graphs is None
+    assert ShardedReceiver(plan, (2, 1), 49152, device="cpu", cuda_graphs=False)._graphs is None
     with pytest.raises(ValueError, match=r"\[k, 98304\]"):
         rx.step_many_u8(rx.init_state(), torch.zeros(98304, dtype=torch.uint8))
     if torch.cuda.is_available():

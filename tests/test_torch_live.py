@@ -8,8 +8,10 @@ process over a loopback rtl_tcp server, a looped recording and the
 librtlsdr stub (``tests/fake_librtlsdr.cpp``) on ``--device cpu``, with a
 ZMQ subscriber connected before it starts; its audio is held bit-equal to
 the port's own ``step_u8`` on the same bytes and within 1 LSB (flip rate
-< 1e-3) of the JAX ``run`` on the same stream.  The ZMQ ports 29931-29937
-are bound by no other test file.
+< 1e-3) of the JAX ``run`` on the same stream.  Every ZMQ port comes from
+``_free_port()``, and every ``run`` goes through :func:`_within`: a call
+that has not returned after ``RUN_LIMIT`` seconds fails its test instead of
+holding the whole run.
 """
 
 import contextlib
@@ -47,6 +49,33 @@ torch.set_num_threads(2)
 TESTS = pathlib.Path(__file__).resolve().parent
 REPO = TESTS.parent
 BLOCK = 49152
+#: seconds a ``run`` may take before its test fails (a few blocks on the CPU
+#: take seconds; the JAX run also compiles its step)
+RUN_LIMIT = 240.0
+
+
+def _within(seconds: float, fn, *args):
+    """``fn(*args)`` on a thread of its own, joined with a deadline: its
+    value, or its exception raised here; a call still running after
+    ``seconds`` fails the test (the thread is a daemon and is left
+    behind)."""
+    box: dict = {}
+
+    def go():
+        try:
+            box["value"] = fn(*args)
+        except BaseException as e:  # noqa: BLE001 - re-raised on the test's thread
+            box["error"] = e
+
+    t = threading.Thread(target=go, daemon=True)
+    t.start()
+    t.join(seconds)
+    if t.is_alive():
+        pytest.fail(f"{getattr(fn, '__module__', '')}.{getattr(fn, '__name__', fn)}{args[:1]} "
+                    f"still running after {seconds:.0f} s")
+    if "error" in box:
+        raise box["error"]
+    return box["value"]
 
 # tests/test_io_cli.py's MINI_INI on a port of its own
 MINI_INI = """
@@ -374,9 +403,9 @@ def scope_receivers():
 
     taps = ("main", "VFO01")
     return {
-        "port": CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK,
+        "port": CompiledReceiver(build_plan(parse_ini_text(_mini(_free_port()))), BLOCK,
                                  emit_taps=taps, device="cpu"),
-        "jax": JaxReceiver(jbuild_plan(jparse(_mini(29931))), BLOCK, emit_taps=taps),
+        "jax": JaxReceiver(jbuild_plan(jparse(_mini(_free_port()))), BLOCK, emit_taps=taps),
     }
 
 
@@ -471,15 +500,18 @@ class _Sub:
 
 def _run_rtl_tcp(cli, ini_path: pathlib.Path, raw: bytes, zport: int, n_blocks: int, *extra):
     """``run`` of ``cli`` over a loopback rtl_tcp server that serves ``raw``
-    once (after a pause for the subscriber) and holds the connection:
-    (exit code, ZMQ frames, server commands)."""
-    srv = _RtlServer([raw], delay=1.0, hold=True)
+    once (after a pause for the subscriber), then one block of zeros, and
+    holds the connection: (exit code, ZMQ frames, server commands).  The
+    JAX runtime takes one block past ``--max-blocks`` before it stops; when
+    it reads the socket itself (its native ring not built) it waits for
+    that block, so the block is there."""
+    srv = _RtlServer([raw + bytes(2 * BLOCK)], delay=1.0, hold=True)
     ini_path.write_text(_mini(zport, f"127.0.0.1:{srv.port}"))
     sub = _Sub(zport)
     t = sub.collect(n_blocks)
     try:
-        rc = cli(["run", "-s", str(ini_path), "--block", str(BLOCK),
-                  "--max-blocks", str(n_blocks), *extra])
+        rc = _within(RUN_LIMIT, cli, ["run", "-s", str(ini_path), "--block", str(BLOCK),
+                                      "--max-blocks", str(n_blocks), *extra])
         t.join(timeout=30)
     finally:
         sub.close()
@@ -493,7 +525,8 @@ def test_run_rtl_tcp_matches_step_u8_and_jax(tmp_path, capsys):
     within 1 LSB of the JAX ``run`` over the same stream."""
     n = 8
     raw = _u8_stream(n)
-    rc, frames, cmds = _run_rtl_tcp(main, tmp_path / "p.ini", raw.tobytes(), 29931, n,
+    zport = _free_port()
+    rc, frames, cmds = _run_rtl_tcp(main, tmp_path / "p.ini", raw.tobytes(), zport, n,
                                     "--device", "cpu")
     assert rc == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -506,14 +539,14 @@ def test_run_rtl_tcp_matches_step_u8_and_jax(tmp_path, capsys):
         assert len(f) == 3 and f[0] == b"VFO01" and struct.unpack("<I", f[1])[0] == 12000
     pcm = np.concatenate([np.frombuffer(f[2], np.int16) for f in frames])
 
-    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29931))), BLOCK, device="cpu")
+    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(zport))), BLOCK, device="cpu")
     state, direct = rx.init_state(), []
     for blk in raw.reshape(n, -1):
         state, o = rx.step_u8(state, torch.from_numpy(blk))
         direct.append(rx.split_audio(o)["audio/VFO01"].numpy())
     np.testing.assert_array_equal(pcm, np.concatenate(direct))
 
-    rc, jframes, jcmds = _run_rtl_tcp(jmain, tmp_path / "j.ini", raw.tobytes(), 29932, n,
+    rc, jframes, jcmds = _run_rtl_tcp(jmain, tmp_path / "j.ini", raw.tobytes(), _free_port(), n,
                                       "--backend", "cpu")
     capsys.readouterr()
     assert rc == 0 and jcmds == cmds and len(jframes) == n
@@ -530,7 +563,8 @@ def test_run_rtl_tcp_without_native_ring_reads_the_socket(tmp_path, capsys, monk
     monkeypatch.setattr(native, "available", lambda: False)
     n = 4
     raw = _u8_stream(n, seed=1)
-    rc, frames, cmds = _run_rtl_tcp(main, tmp_path / "p.ini", raw.tobytes(), 29937, n,
+    zport = _free_port()
+    rc, frames, cmds = _run_rtl_tcp(main, tmp_path / "p.ini", raw.tobytes(), zport, n,
                                     "--device", "cpu")
     assert rc == 0
     summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -539,7 +573,7 @@ def test_run_rtl_tcp_without_native_ring_reads_the_socket(tmp_path, capsys, monk
     assert [c[0] for c in cmds[:5]] == [0x08, 0x03, 0x0D, 0x02, 0x01]
     assert len(frames) == n
     pcm = np.concatenate([np.frombuffer(f[2], np.int16) for f in frames])
-    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(29937))), BLOCK, device="cpu")
+    rx = CompiledReceiver(build_plan(parse_ini_text(_mini(zport))), BLOCK, device="cpu")
     state, direct = rx.init_state(), []
     for blk in raw.reshape(n, -1):
         state, o = rx.step_u8(state, torch.from_numpy(blk))
@@ -554,8 +588,9 @@ def test_run_iq_fast_frames_contiguous(tmp_path, capsys):
     looped recording, ending at the last block (no gap, overlap or
     re-order; a late subscriber misses only the first frames).  The JAX
     package's test_zmq_stream_contiguous_across_blocks, against the port."""
+    zport = _free_port()
     ini = tmp_path / "m.ini"
-    ini.write_text(_mini(29933))
+    ini.write_text(_mini(zport))
     iq = tmp_path / "t.u8"
     # 8 whole blocks: the loop drops no remainder
     assert main(["synth", "-s", str(ini), "--out", str(iq), "--seconds", "0.256",
@@ -568,11 +603,12 @@ def test_run_iq_fast_frames_contiguous(tmp_path, capsys):
     capsys.readouterr()
     n, per = 16, BLOCK // 128
     assert offline.size >= n * per
-    sub = _Sub(29933)
+    sub = _Sub(zport)
     sub.collect(n)
     try:
-        rc = main(["run", "-s", str(ini), "--iq", str(iq), "--fast", "--block", str(BLOCK),
-                   "--max-blocks", str(n), "--device", "cpu"])
+        rc = _within(RUN_LIMIT, main, ["run", "-s", str(ini), "--iq", str(iq), "--fast",
+                                       "--block", str(BLOCK), "--max-blocks", str(n),
+                                       "--device", "cpu"])
         # the last frames may still be in flight: wait until they stop coming
         seen, deadline = -1, time.monotonic() + 10.0
         while len(sub.frames) != seen and len(sub.frames) < n and time.monotonic() < deadline:
@@ -594,7 +630,7 @@ def test_run_iq_fast_frames_contiguous(tmp_path, capsys):
 USB_INI = """
 sample_rate=1536000
 center_frequency=1545600000
-zmq_address=tcp://127.0.0.1:29934
+zmq_address=tcp://127.0.0.1:{port}
 auto_start_tuner_serial=77777777
 auto_start_biast=1
 tuner_gain=240
@@ -715,13 +751,14 @@ def test_devices_output_equal_jax(rtl_env, capsys):
 def test_run_local_usb_end_to_end(rtl_env, tmp_path, capsys):
     """``run`` on the stub: the device picked by serial, its bias tee set,
     the +fs/8 tone demodulated to 1 kHz audio, the device closed after."""
+    zport = _free_port()
     ini = tmp_path / "usb.ini"
-    ini.write_text(USB_INI)
-    sub = _Sub(29934)
+    ini.write_text(USB_INI.format(port=zport))
+    sub = _Sub(zport)
     t = sub.collect(5)
     try:
-        rc = main(["run", "-s", str(ini), "--block", str(BLOCK), "--max-blocks", "40",
-                   "--device", "cpu"])
+        rc = _within(RUN_LIMIT, main, ["run", "-s", str(ini), "--block", str(BLOCK),
+                                       "--max-blocks", "40", "--device", "cpu"])
         t.join(timeout=30)
     finally:
         sub.close()
@@ -745,7 +782,7 @@ def test_usb_unavailable_is_clean(monkeypatch, capsys, tmp_path):
         rtlusb.RtlUsbDevice(0)
     assert main(["devices"]) == 2
     ini = tmp_path / "m.ini"
-    ini.write_text(_mini(29935))
+    ini.write_text(_mini(_free_port()))
     assert main(["run", "-s", str(ini), "--device", "cpu", "--max-blocks", "1"]) == 2
     assert "no source" in capsys.readouterr().err
 
@@ -753,13 +790,14 @@ def test_usb_unavailable_is_clean(monkeypatch, capsys, tmp_path):
 # ---------------------------------------------------------------- bench
 def test_bench_json_equal_jax(tmp_path, capsys):
     ini = tmp_path / "m.ini"
-    ini.write_text(_mini(29936))
+    ini.write_text(_mini(_free_port()))
     args = ["bench", "-s", str(ini), "--block", str(BLOCK), "--blocks", "2"]
     assert main([*args, "--device", "cpu"]) == 0
     ours = json.loads(capsys.readouterr().out)
     assert jmain([*args, "--backend", "cpu"]) == 0
     ref = json.loads(capsys.readouterr().out)
-    assert set(ours) == set(ref)
+    # the JAX keys, and whether CUDA graphs ran (never on the CPU)
+    assert set(ours) == set(ref) | {"cuda_graphs"} and ours["cuda_graphs"] is False
     assert ours["cost_model"] == ref["cost_model"]
     assert ours["mode"] == "kernels" and ours["device"] == "cpu"
     assert ours["block_samples"] == BLOCK and ours["msamples_per_second"] > 0
