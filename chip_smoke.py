@@ -60,7 +60,8 @@ its result and failing the script (non-zero exit) if it fails:
  18. two ``process-file`` processes on the card joined on gloo: the
      groups partition (union bit-equal to one process, no topic twice),
      ``--partition global --mesh 2x1`` (each process writes its own topics,
-     union within 1 LSB); each process's kernels launched once a block;
+     union within 1 LSB); each process's kernels launched once a block,
+     through CUDA graphs (the summaries say ``"cuda_graphs": true``);
      three processes for two groups (one exits 1)
  19. the step entries as CUDA graphs (the receiver's default on the card;
      every phase above runs through them): the flagship ``step_u8`` at
@@ -86,6 +87,26 @@ its result and failing the script (non-zero exit) if it fails:
      receiver's ``step_u8``), ``bench --mesh 4x1``, and a capture that
      cannot hold its step fails it (``chip_smoke.py --capture-failure``, a
      process of its own, exits non-zero)
+ 21. the sharded receiver's step entries as CUDA graphs across processes:
+     the flagship on a ``--partition global`` mesh 2x1 over two processes
+     on the card (``chip_smoke.py --procgraphs``, and a global 4x1 over two
+     processes of two distinct cards each where there are four cards), at
+     1,536,000 and 384,000, graphs against the eager step in each process:
+     outputs and exported state bit-equal, ``step_many_u8`` k=4 bit-equal
+     to 4 graph steps, each process's per-shard mix-cascade site against
+     its plain version, the same ``mix_cascade`` launches and profiler rows
+     per replay as per eager step, step ms in turns, graphs, transfers and
+     gloo exchanges per replay, device µs, idle share and peak memory;
+     then the first card runs of ``bench --coordinator`` under both
+     partitions (eff(2), ``sps_1_full_plan``) and of ``run --coordinator
+     --partition global --mesh 2x1`` over loopback rtl_tcp (no drop, each
+     process's ZMQ audio bit-equal to its own topics of the one-process 2x1
+     mesh's ``step_u8``), and a capture that fails in one process of two
+     (``chip_smoke.py --capture-failure-procs``): both processes exit
+     non-zero, the peer on its next exchange
+
+``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes and
+phase 21's four-card mesh (a machine of four cards).
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -1348,13 +1369,18 @@ def cli_child(argv: list[str]) -> int:
     return rc
 
 
-def processes(argvs: list[list], timeout: float = 300.0) -> list[tuple[int, str, str]]:
-    """Run the port's CLI (through :func:`cli_child`) in one process per
-    argv, all at once; (exit code, stdout, stderr) of each."""
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), "--cli", *map(str, a)],
+def processes(argvs: list[list], timeout: float = 300.0,
+              envs: list[dict] | None = None) -> list[tuple[int, str, str]]:
+    """Run ``chip_smoke.py ARGV`` (``--cli ARGS``: the port's CLI through
+    :func:`cli_child`) in one process per argv, all at once, each with
+    ``envs[i]`` added to its environment; (exit code, stdout, stderr) of
+    each.  A process still running after ``timeout`` s is killed (exit
+    code -9)."""
+    envs = envs or [{}] * len(argvs)
+    procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), *map(str, a)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=env, cwd=str(REPO)) for a in argvs]
+                              env=dict(os.environ, PYTHONPATH=str(REPO), **e), cwd=str(REPO))
+             for a, e in zip(argvs, envs)]
     try:
         res = [p.communicate(timeout=timeout) for p in procs]
     finally:
@@ -1374,14 +1400,15 @@ def phase_multihost(card: str) -> None:
     def fleet(tag: str, n: int, *extra):
         coord = f"127.0.0.1:{free_port()}"
         t0 = time.perf_counter()
-        res = processes([["process-file", "-s", d / "alt.ini", "--iq", d / "alt.u8", "--out",
-                          d / f"{tag}{i}", "--device", DEVICE, "--coordinator", coord,
+        res = processes([["--cli", "process-file", "-s", d / "alt.ini", "--iq", d / "alt.u8",
+                          "--out", d / f"{tag}{i}", "--device", DEVICE, "--coordinator", coord,
                           "--num-processes", n, "--process-id", i, *extra] for i in range(n)])
         return res, time.perf_counter() - t0
 
     def ran(res, what: str) -> list[dict]:
-        """Each process's JSON summary; fails unless it exited 0 and every
-        kernel wrapper on its path launched once a block."""
+        """Each process's JSON summary; fails unless it exited 0, stepped
+        through CUDA graphs and every kernel wrapper on its path launched
+        once a block."""
         out = []
         for rc, so, se in res:
             if rc:
@@ -1390,9 +1417,11 @@ def phase_multihost(card: str) -> None:
             summary = json.loads(summary)
             (launches,) = json.loads(last)["launches"]
             print(f"{what}: process {summary['multihost']['process_id']} launches {launches} "
-                  f"over {summary['blocks']} blocks")
+                  f"over {summary['blocks']} blocks, cuda_graphs {summary['cuda_graphs']}")
             if not launches or any(n != summary["blocks"] for n in launches.values()):
                 fail(f"{what}: a process did not launch its kernels once a block")
+            if not summary["cuda_graphs"]:
+                fail(f"{what}: a process stepped eagerly")
             out.append(summary)
         return out
 
@@ -1502,12 +1531,13 @@ def peak_mib(make, entry: str, blocks) -> float:
     return (torch.cuda.max_memory_allocated() - base) / 2**20
 
 
-def step_rows(rx, entry: str, blocks, calls: int = 10) -> dict:
+def step_rows(rx, entry: str, blocks, calls: int = 10, lockstep: bool = False) -> dict:
     """Per step under ``torch.profiler`` (``cuda/devtime.device_us``, which
     drops the trace's first records and profiles again while a row is not
     whole per call): CUDA rows (kernels, memsets, copies) by name, their
     device µs, the wall ms of the profiled steps, and the wrappers' launch
-    counts per step."""
+    counts per step.  ``lockstep``: ``rx`` spans processes, which all
+    profile at once (``devtime.lockstep_us``)."""
     from sdrreceiver_tpu_torch.cuda import devtime
 
     fn = getattr(rx, f"step_{entry}")
@@ -1520,7 +1550,7 @@ def step_rows(rx, entry: str, blocks, calls: int = 10) -> dict:
 
     before = path_launches(rx)
     wall: dict = {}
-    us, rows = devtime.device_us(step, calls, wall=wall)
+    us, rows = (devtime.lockstep_us if lockstep else devtime.device_us)(step, calls, wall=wall)
     after = path_launches(rx)
     return {"rows": rows, "device_us": us, "wall_ms": wall["ms"],
             "launched": {k: (after[k] - before[k]) / st["n"] for k in after}}
@@ -1638,10 +1668,11 @@ def mesh_layouts(dev) -> list[tuple[str, object]]:
     return layouts
 
 
-def phase_mesh_graphs(dev, card: str, reps: int) -> dict:
+def phase_mesh_graphs(dev, card: str, reps: int, layouts=None) -> dict:
     """20. Every step entry of the sharded receiver in one process as CUDA
     graphs, one per phase and card (``dist/meshgraph.py``), against the
-    eager mesh step (``cuda_graphs=False``) on the same blocks."""
+    eager mesh step (``cuda_graphs=False``) on the same blocks, on
+    ``layouts`` (default :func:`mesh_layouts`)."""
     from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh
     from sdrreceiver_tpu_torch.graph.config import parse_ini_text
     from sdrreceiver_tpu_torch.graph.plan import build_plan
@@ -1654,7 +1685,7 @@ def phase_mesh_graphs(dev, card: str, reps: int) -> dict:
         else:
             plan, taps = graph_plan(name)
         blocks = torch.tensor(plan_stream(plan, n, block, seed=20), device=dev)
-        for lname, devs_of in mesh_layouts(dev):
+        for lname, devs_of in layouts or mesh_layouts(dev):
             for shape in shapes:
                 devs = devs_of(shape[0] * shape[1])
                 what = f"mesh graphs {name} block {block} {shape[0]}x{shape[1]} ({lname})"
@@ -1788,7 +1819,7 @@ def phase_mesh_cli(dev, card: str) -> dict:
     last = (res.stderr.strip().splitlines() or [""])[-1]
     print(f"a host read inside a phase of a 2x1 mesh step: the process exited {res.returncode} "
           f"({last[:160]})")
-    if res.returncode == 0 or "capture" not in res.stderr or "stepped" in res.stdout:
+    if res.returncode <= 0 or "capture" not in res.stderr or "stepped" in res.stdout:
         fail("a capture that cannot hold the mesh step did not fail the step")
     return out
 
@@ -1815,6 +1846,275 @@ def capture_failure_child() -> int:
     torch.cuda.synchronize()
     print("stepped: the capture did not fail")
     return 0
+
+
+def proc_mesh(coord: str, pid: int, n_local: int):
+    """(mesh, plan): this process joined to a gloo group of two at
+    ``coord`` as ``pid``, and the ``--partition global`` mesh over both
+    processes' ``n_local`` cards each (1: the card; 2: two distinct cards,
+    a global 4x1), with the flagship plan."""
+    from sdrreceiver_tpu_torch.dist import local_devices, multihost
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    multihost.initialize(coord, 2, pid)
+    devs = [torch.device("cuda", torch.cuda.current_device())] if n_local == 1 \
+        else local_devices(n_local, "cuda")
+    return multihost.global_mesh(1, devs), build_plan(benchmark_config())
+
+
+def proc_graphs_child(argv: list[str]) -> int:
+    """``chip_smoke.py --procgraphs COORD PID N_LOCAL``: one of phase 21's
+    two processes.  On the global mesh (:func:`proc_mesh`) at 1,536,000 and
+    384,000: the sharded receiver with graphs per phase and card (the
+    default) against the eager one (``cuda_graphs=False``) on the same
+    blocks, the burst, the launches, step ms in turns, the profiler's rows
+    (both processes profile at once) and peak memory; a last line of JSON
+    with the numbers.  Both processes make the same steps in the same
+    order: every step exchanges data through gloo."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+
+    coord, pid, n_local = argv[0], int(argv[1]), int(argv[2])
+    mesh, plan = proc_mesh(coord, pid, n_local)
+    cards = [str(d) for d in mesh.local()]
+    n, out = 4, []
+    for block in (BLOCK, LIVE_BLOCK):
+        blocks = torch.tensor(plan_stream(plan, n, block, seed=21), device=mesh.home)
+        what = (f"process {pid} of 2, global {mesh.shape['time']}x1 on {cards} "
+                f"(visible cards {os.environ.get('CUDA_VISIBLE_DEVICES', 'all')}), block {block}")
+
+        def make(graphs: bool = True):
+            return ShardedReceiver(plan, mesh, block, cuda_graphs=graphs)
+
+        rxs = {"graph": make(), "eager": make(False)}
+        got, g_states = entry_run(rxs["graph"], "u8", blocks)
+        ref, e_states = entry_run(rxs["eager"], "u8", blocks)
+        launches = {k: path_launches(r) for k, r in rxs.items()}
+        (entry,) = rxs["graph"]._graphs._entries.values()
+        per_replay = {"graphs": 0 if entry.graph is None else entry.graph.graphs,
+                      "transfers": len(entry.body.transfers.bufs),
+                      "exchanges": len(entry.body.transfers.hosts)}
+        same = bit_equal(got, ref) and bit_equal(g_states, e_states)
+        print(f"{what}: graph vs eager over {n} blocks, outputs {len(got[0])} keys and exported "
+              f"state bit-equal: {same}; launches {launches} (expected {n} each); a replay runs "
+              f"{per_replay}", flush=True)
+        if not same or launches["graph"] != launches["eager"] or not launches["graph"] \
+                or any(v != n for v in launches["graph"].values()) \
+                or not per_replay["exchanges"]:
+            fail(f"{what}: the graphs differ from the eager step or missed a launch")
+        gx = rxs["graph"]
+        st, many = gx.step_many_u8(gx.init_state(), blocks[:4])
+        burst = [{k: v.cpu().numpy() for k, v in o.items()} for o in gx.unstack_outputs(many, 4)]
+        same = bit_equal(burst, got[:4]) and bit_equal([gx.export_state(st)], g_states[3:4])
+        print(f"{what}: step_many_u8 k=4 vs 4 graph steps bit-equal: {same}", flush=True)
+        if not same:
+            fail(f"{what}: the burst graphs differ from 4 graph steps")
+        err = sites_vs_plain(gx, what)["err"]
+        turns = step_turns(rxs, "u8", blocks, 20)
+        ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        prof = {k: step_rows(r, "u8", blocks, lockstep=True) for k, r in rxs.items()}
+        kinds = {k: row_kinds(p["rows"]) for k, p in prof.items()}
+        mem = {"eager": peak_mib(lambda: make(False), "u8", blocks),
+               "graph": peak_mib(make, "u8", blocks)}
+        idle = {k: 1.0 - prof[k]["device_us"] / 1e3 / ms[k] for k in ms}
+        for k in ("eager", "graph"):
+            print(f"{what} {k}: {ms[k]:.4f} ms/step (medians in turns {turns[k]}); profiled: "
+                  f"{prof[k]['wall_ms']:.4f} ms/step, device {prof[k]['device_us']:.1f} us over "
+                  f"{kinds[k]['rows']:g} CUDA rows, idle share {idle[k]:.3f}; rows {kinds[k]}; "
+                  f"wrapper launches per step {prof[k]['launched']}; peak device memory "
+                  f"{mem[k]:.1f} MiB", flush=True)
+        per_step = sum(prof["graph"]["launched"].values())
+        if kinds["graph"]["mix_cascade"] != kinds["eager"]["mix_cascade"] \
+                or kinds["graph"]["mix_cascade"] != per_step or per_step != len(mesh.rows()):
+            fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade rows, "
+                 f"the eager step {kinds['eager']['mix_cascade']:g}, the wrappers count "
+                 f"{per_step:g}")
+        out.append({"block": block, "err": err, "ms": ms, "turns": turns, "idle": idle,
+                    "mem": mem,
+                    "kinds": kinds, **per_replay,
+                    "device_us": {k: p["device_us"] for k, p in prof.items()},
+                    "profiled_ms": {k: p["wall_ms"] for k, p in prof.items()}})
+    multihost.shutdown()
+    print(json.dumps({"process_id": pid, "cards": cards, "cases": out}))
+    return 0
+
+
+def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False) -> list[dict]:
+    """21. The sharded receiver's step entries as CUDA graphs on a mesh
+    across processes: two processes (:func:`proc_graphs_child`) of
+    ``n_local`` cards each, all of them the one card, or (``distinct``)
+    each process its own cards; each fails on its own checks.  Each
+    process's cases."""
+    coord = f"127.0.0.1:{free_port()}"
+    envs = None
+    if distinct:
+        envs = [{"CUDA_VISIBLE_DEVICES": ",".join(str(n_local * i + j) for j in range(n_local))}
+                for i in (0, 1)]
+    t0 = time.perf_counter()
+    res = processes([["--procgraphs", coord, i, n_local] for i in (0, 1)], timeout=600, envs=envs)
+    secs = time.perf_counter() - t0
+    out = []
+    for i, (rc, so, se) in enumerate(res):
+        print("\n".join("  " + line for line in so.strip().splitlines()[:-1]))
+        if rc:
+            fail(f"phase 21: process {i} exited {rc}: {se[-3000:]}")
+        out.append(json.loads(so.strip().splitlines()[-1]))
+    print(f"phase 21, {n_local} card(s) a process{', distinct' if distinct else ''}: both "
+          f"processes passed ({secs:.1f} s, start-up included) {card}")
+    return out
+
+
+def capture_failure_procs_child(argv: list[str]) -> int:
+    """``chip_smoke.py --capture-failure-procs COORD PID``: a global 2x1
+    flagship mesh over two processes on the card, process 0's step reading
+    a device value on the host inside a phase: its capture fails and ends
+    it non-zero; process 1's next exchange then finds its peer gone, which
+    ends it non-zero too."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+
+    mesh, plan = proc_mesh(argv[0], int(argv[1]), 1)
+    try:  # the process group is left as the CLI leaves it
+        rx = ShardedReceiver(plan, mesh, LIVE_BLOCK)
+        if mesh.rank == 0:
+            gather = rx._gather_time
+
+            def syncing(per_shard):
+                zs = gather(per_shard)
+                next(iter(zs.values()))[0].sum().item()
+                return zs
+
+            rx._gather_time = syncing
+        raw = torch.full((2 * LIVE_BLOCK,), 127, dtype=torch.uint8, device=mesh.home)
+        st = rx.init_state()
+        for _ in range(3):
+            st, _ = rx.step_u8(st, raw)
+        torch.cuda.synchronize()
+    finally:
+        multihost.shutdown()
+    print("stepped: the capture did not fail")
+    return 0
+
+
+def phase_proc_cli(dev, card: str) -> dict:
+    """21 (end). First card runs of the CLI across processes: ``bench
+    --coordinator`` under both partitions, ``run --coordinator --partition
+    global --mesh 2x1`` over loopback rtl_tcp (each process's ZMQ audio
+    against its own topics of the one-process 2x1 mesh's ``step_u8`` on the
+    same bytes), and a capture that fails in one process of two."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+
+    d = WORK / "proc_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    out: dict = {"bench": {}}
+    bench_ini = d / "flag.ini"
+    bench_ini.write_text(flagship_ini(free_port()))
+    for partition, extra in (("groups", []),
+                             ("global", ["--partition", "global", "--mesh", "2x1"])):
+        for block in (LIVE_BLOCK, BLOCK):
+            coord = f"127.0.0.1:{free_port()}"
+            res = processes([["--cli", "bench", "-s", bench_ini, "--device", DEVICE, "--block",
+                              block, "--blocks", 20, "--coordinator", coord, "--num-processes", 2,
+                              "--process-id", i, *extra] for i in (0, 1)])
+            sums = []
+            for i, (rc, so, se) in enumerate(res):
+                if rc:
+                    fail(f"bench --coordinator {partition}: process {i} exited {rc}: {se[-2000:]}")
+                sums.append(json.loads(so.strip().splitlines()[-2]))
+            mh = [s["multihost"] for s in sums]
+            print(f"bench --coordinator --partition {partition}, 2 processes on one card, flagship "
+                  f"block {block}: mode {[s['mode'] for s in sums]}, cuda_graphs "
+                  f"{[s['cuda_graphs'] for s in sums]}, Msamples/s per process "
+                  f"{mh[0]['sps_per_host_msps']}, sps_1_full_plan "
+                  f"{[m['sps_1_full_plan'] for m in mh]} Msamples/s, eff(2) {mh[0]['eff']} (ceiling {mh[0]['eff_ceiling']}), realtime "
+                  f"{[s['realtime_factor'] for s in sums]} {card}")
+            if not all(s["cuda_graphs"] for s in sums) or any(s["block_samples"] != block
+                                                               for s in sums):
+                fail(f"bench --coordinator {partition}: not on graphs or not at block {block}")
+            out["bench"][(partition, block)] = mh[0]
+
+    # run over rtl_tcp: each process its own server of the same bytes, its
+    # own ZMQ port, its own topics
+    n = 12
+    raw, tones = flagship_stream(n, LIVE_BLOCK, seed=21)
+    plan = build_plan(benchmark_config())
+    owner = multihost.egress_owner(plan, 2)
+    topics = [[s.topic for g in plan.groups if owner[g.index] == i for b in g.buckets
+               for s in b.subs] for i in (0, 1)]
+    watch = [sorted(t for t in ts if t in tones)[:3] for ts in topics]
+    zports = [free_port(), free_port()]
+    srvs = [LoopbackRtlTcp(list(raw), interval=LIVE_BLOCK / 1_536_000, delay=3.0) for _ in (0, 1)]
+    inis = []
+    for i in (0, 1):
+        inis.append(d / f"rtl{i}.ini")
+        inis[i].write_text(flagship_ini(zports[i], f"127.0.0.1:{srvs[i].port}"))
+    subs = [Subscriber(zports[i], watch[i]) for i in (0, 1)]
+    coord = f"127.0.0.1:{free_port()}"
+    res = processes([["--cli", "run", "-s", inis[i], "--device", DEVICE, "--block", LIVE_BLOCK,
+                      "--max-blocks", n, "--coordinator", coord, "--num-processes", 2,
+                      "--process-id", i, "--partition", "global", "--mesh", "2x1"]
+                     for i in (0, 1)])
+    frames = [s.close() for s in subs]
+    for srv in srvs:
+        srv.join(timeout=15)
+    direct = ShardedReceiver(plan, (2, 1), LIVE_BLOCK, device=DEVICE)
+    ref = steps_audio(direct, torch.tensor(raw, device=dev))
+    rates = direct.rates()
+    runs = []
+    for i, (rc, so, se) in enumerate(res):
+        if rc:
+            fail(f"run --coordinator --partition global: process {i} exited {rc}: {se[-2000:]}")
+        summary = json.loads(so.strip().splitlines()[-2])
+        (launches,) = json.loads(so.strip().splitlines()[-1])["launches"]
+        print(f"run --coordinator --partition global --mesh 2x1 over rtl_tcp, paced, process {i} "
+              f"of 2 on one card: {summary['blocks']} blocks, cuda_graphs "
+              f"{summary['cuda_graphs']}, ring {summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
+              f"launches {launches} (expected {n} each); block_latency_ms p50 "
+              f"{summary['block_latency_ms']['p50']} {card}")
+        if summary["blocks"] != n or summary["ring"]["dropped"] \
+                or summary["rtl_tcp"]["reconnects"] or not summary["cuda_graphs"] \
+                or any(v != n for v in launches.values()) or not launches:
+            fail(f"run --coordinator --partition global: process {i} dropped blocks, stepped "
+                 f"eagerly or missed a launch")
+        got: dict[str, list[np.ndarray]] = {t: [] for t in watch[i]}
+        for f in frames[i]:
+            topic = f[0].decode()
+            if len(f) != 3 or topic not in got \
+                    or struct.unpack("<I", f[1])[0] != rates[f"audio/{topic}"]:
+                fail(f"run --coordinator: process {i} sent a malformed frame {f[:2]}")
+            got[topic].append(np.frombuffer(f[2], np.int16))
+        for topic, parts in got.items():
+            k = len(parts)
+            same = k >= n - 1 and all(np.array_equal(a, b) for a, b in
+                                      zip(parts, [o[f"audio/{topic}"] for o in ref[n - k:]]))
+            print(f"run --coordinator process {i} ZMQ {topic}: {k} frames (of {n}), bit-equal to "
+                  f"the one-process 2x1 mesh's step_u8 on the same bytes: {same}")
+            if not same:
+                fail(f"run --coordinator: process {i}'s {topic} differs from the 2x1 mesh step_u8")
+        runs.append(summary)
+    out["run"] = runs
+
+    # no fallback across processes: process 0's capture fails, and process
+    # 1 then ends on its first exchange without its peer
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    res = processes([["--capture-failure-procs", coord, i] for i in (0, 1)], timeout=240)
+    secs = time.perf_counter() - t0
+    (rc0, so0, se0), (rc1, so1, se1) = res
+    print(f"a host read inside a phase of process 0 of a global 2x1 mesh: exit codes "
+          f"{[rc for rc, _, _ in res]} after {secs:.1f} s; the errors:")
+    for i, (_, _, se) in enumerate(res):
+        errs = [line for line in se.splitlines() if "Error" in line or "error" in line]
+        print(f"  process {i}: {[e[:200] for e in errs[-4:]]}")
+    tail = [line[:200] for line in se0.strip().splitlines()
+            if not line.lstrip().startswith("frame #")][-30:]
+    print("  process 0's last lines of stderr (no C++ frames):\n    " + "\n    ".join(tail))
+    if rc0 <= 0 or "capture" not in se0 or rc1 <= 0 or "communicate" not in se1 \
+            or "stepped" in so0 + so1:
+        fail("a capture that cannot hold the step across processes did not end both processes")
+    return out
 
 
 def main() -> None:
@@ -2021,6 +2321,12 @@ def main() -> None:
     phase_mesh_graphs(dev, card, reps)
     phase_mesh_cli(dev, card)
 
+    # ---- 21. the mesh step across processes as CUDA graphs ----
+    phase_proc_graphs(card)
+    if torch.cuda.device_count() >= 4:
+        phase_proc_graphs(card, n_local=2, distinct=True)
+    phase_proc_cli(dev, card)
+
     kernels = [
         {"name": "dc_ingest", "route": "cuda",
          "source": "sdrreceiver_tpu_torch/csrc/dc_ingest.cu",
@@ -2093,9 +2399,40 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+def four_cards() -> None:
+    """``chip_smoke.py --four-cards``: on a machine of four cards, only the
+    paths that need them: phase 20's meshes over four distinct cards and
+    phase 21's global meshes over two processes on distinct cards (2x1 of
+    one card each, 4x1 of two cards each)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        fail("--four-cards needs four CUDA devices")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    card = f"[{smi[0]} x{len(smi)}]"
+    print("\n".join(smi))
+    from sdrreceiver_tpu_torch.cuda import build
+
+    build.library()
+    dev = torch.device(DEVICE)
+    phase_mesh_graphs(dev, card, 20, layouts=mesh_layouts(dev)[1:])
+    phase_proc_graphs(card, n_local=1, distinct=True)
+    phase_proc_graphs(card, n_local=2, distinct=True)
+    print(smi[0])
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--cli"]:
-        sys.exit(cli_child(sys.argv[2:]))
+    modes = {"--cli": cli_child, "--procgraphs": proc_graphs_child,
+             "--capture-failure-procs": capture_failure_procs_child}
+    if sys.argv[1:2] and sys.argv[1] in modes:
+        sys.exit(modes[sys.argv[1]](sys.argv[2:]))
     if sys.argv[1:2] == ["--capture-failure"]:
         sys.exit(capture_failure_child())
+    if sys.argv[1:2] == ["--four-cards"]:
+        four_cards()
+        sys.exit(0)
     main()

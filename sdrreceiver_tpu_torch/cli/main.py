@@ -20,9 +20,9 @@ JSON:
 
 ``--device`` picks the torch device (default ``cuda``; asking for it
 without a card is an error, never a fall back to the CPU).  On the card the
-receiver replays one CUDA graph per step, and a mesh in one process one
-graph per phase and card (the receivers' default); a mesh across processes
-steps eagerly.  ``--plain`` runs the kernels' plain PyTorch versions,
+receiver replays one CUDA graph per step, and a mesh one graph per phase
+and card, its gloo exchanges between the phases where it spans processes
+(the receivers' default).  ``--plain`` runs the kernels' plain PyTorch versions,
 eagerly (``use_kernels=False, cuda_graphs=False``).  Each command's JSON
 summary says whether graphs ran (``"cuda_graphs"``).
 ``--mesh TxC`` runs the sharded receiver over T*C local devices (the cards,
@@ -119,8 +119,6 @@ def _build(args, taps=()):
         div = plan.block_divisor() * mesh.shape["time"]
         block = args.block or -(-plan.block_samples // div) * div
         taps = _all_taps(plan) if taps == "all" else taps
-        # across processes the step waits on gloo: eager
-        kw["cuda_graphs"] = kw["cuda_graphs"] and not mesh.multiprocess
         return cfg, plan, ShardedReceiver(plan, mesh, block, emit_taps=tuple(taps), **kw)
     if args.coordinator:
         from ..dist import multihost

@@ -4,6 +4,7 @@ their bounds (needs a CUDA device).
     python3 sdrreceiver_tpu_torch/cuda/devtime.py [--root DIR] [--calls N]
     python3 sdrreceiver_tpu_torch/cuda/devtime.py --ab OTHER_ROOT
     python3 sdrreceiver_tpu_torch/cuda/devtime.py --steps
+    python3 sdrreceiver_tpu_torch/cuda/devtime.py --steps --procs
 
 The first form times the kernels of the ``sdrreceiver_tpu_torch`` package
 found under ``--root`` (default: this file's checkout), with the sharded
@@ -20,7 +21,11 @@ eager, as a CUDA graph and as a graph with stateful buckets (in turns),
 and 4x1, 2x2 and 1x4 meshes of the card, eager and with a graph per phase
 (in turns): wall time, device time, CUDA rows per step, the device's idle
 share, and the rows each adds over the one-device step (eager, or the
-graph for the graph cases).
+graph for the graph cases).  ``--steps --procs`` profiles a ``--partition
+global`` mesh 2x1 over two processes of this script on the card (gloo
+between them), eager and with graphs per phase in turns, at both blocks:
+process 0's wall time, device time, CUDA rows and idle share, and the
+exchanges and graphs one replay makes.
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -90,10 +95,10 @@ def device_us(fn, calls: int, row_us: dict | None = None,
     The profiler loses device records at the start of a trace (a step's
     first kernel and memset counted 9 times in 10 steps, a kernel 44 times
     in 50 calls), so each profile first runs a warm-up cycle of 2 calls
-    whose records are dropped (``schedule(warmup=1)``).  A profile in which
-    some row is still not a whole number per call is taken again, up to
-    ``tries`` times; the last one is returned either way, so a caller that
-    checks the rows still sees it."""
+    whose records are dropped (``schedule(warmup=1)``).  A profile with no
+    CUDA row, or in which some row is still not a whole number per call,
+    is taken again, up to ``tries`` times; the last one is returned either
+    way, so a caller that checks the rows still sees it."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -126,7 +131,7 @@ def device_us(fn, calls: int, row_us: dict | None = None,
             total += t
             counts[e.key] = e.count
             times[e.key] = t / calls
-        if all(n % calls == 0 for n in counts.values()):
+        if counts and all(n % calls == 0 for n in counts.values()):
             break
         print(f"devtime: profile {attempt + 1} lost device records {counts}", file=sys.stderr)
     if row_us is not None:
@@ -134,6 +139,24 @@ def device_us(fn, calls: int, row_us: dict | None = None,
     if wall is not None:
         wall["ms"] = start.elapsed_time(end) / calls
     return total / calls, {k: n / calls for k, n in counts.items()}
+
+
+def lockstep_us(fn, calls: int, row_us: dict | None = None,
+                wall: dict | None = None, tries: int = 3) -> tuple[float, dict[str, int]]:
+    """:func:`device_us` in every process of a gloo group at once, each
+    stepping ``fn`` (whose steps exchange data) the same number of times:
+    the profile is taken again in all of them while any of them lost
+    device records."""
+    import torch.distributed as dist
+
+    for _ in range(tries):
+        us, rows = device_us(fn, calls, row_us, tries=1, wall=wall)
+        whole = [None] * dist.get_world_size()
+        dist.all_gather_object(whole, bool(rows) and all(float(n).is_integer()
+                                                         for n in rows.values()))
+        if all(whole):
+            break
+    return us, rows
 
 
 def measure(calls: int = 50, seed: int = 0, step: bool = True) -> list[dict]:
@@ -218,13 +241,14 @@ def step_case(block: int, seed: int, steps: int = 20) -> dict:
             "step_ms": start.elapsed_time(end) / steps}
 
 
-def step_profile(rx, raw, calls: int) -> dict:
+def step_profile(rx, raw, calls: int, lockstep: bool = False) -> dict:
     """``rx.step_u8`` alternating over ``raw [2, 2T]``: wall ms per step
     (CUDA events around ``calls`` steps, outside the profiler), and under
     ``torch.profiler`` device µs, CUDA rows (kernels, memsets, copies) and
     the profiled steps' wall ms (the profiler slows the host); the device's
     idle share against the wall time outside the profiler; each row's µs
-    and count."""
+    and count.  ``lockstep``: ``rx`` is one process's receiver of a mesh
+    across processes (:func:`lockstep_us`)."""
     import torch
 
     st = {"s": rx.init_state(), "i": 0}
@@ -235,7 +259,7 @@ def step_profile(rx, raw, calls: int) -> dict:
 
     row_us: dict[str, float] = {}
     wall: dict = {}
-    us, rows = device_us(step, calls, row_us, wall=wall)
+    us, rows = (lockstep_us if lockstep else device_us)(step, calls, row_us, wall=wall)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(calls):
@@ -291,13 +315,131 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
     return out
 
 
-def _in_turns(rxs: dict, order: list[str], prefix: str, raw, calls: int) -> list[dict]:
+def proc_step_profiles(calls: int = 10, seed: int = 0, timeout: float = 900) -> list[dict]:
+    """The ``--steps`` cases of a ``--partition global`` mesh 2x1 over two
+    processes of this script on the card (:func:`proc_child`): process 0's
+    profiles, its last line of output."""
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        coord = f"127.0.0.1:{sk.getsockname()[1]}"
+    root = pathlib.Path(__file__).resolve().parents[2]
+    env = dict(os.environ, PYTHONPATH=str(root))
+    procs = [subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
+                               "--proc-child", coord, str(i), str(calls), str(seed)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+             for i in (0, 1)]
+    try:
+        res = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for i, (p, (_, se)) in enumerate(zip(procs, res)):
+        if p.returncode:
+            sys.exit(f"devtime: process {i} of the global mesh exited {p.returncode}:\n"
+                     f"{se[-4000:]}")
+    return json.loads(res[0][0].strip().splitlines()[-1])["steps"]
+
+
+def proc_child(coord: str, pid: int, calls: int, seed: int) -> None:
+    """One of :func:`proc_step_profiles`' two processes: the flagship on
+    the global mesh 2x1 (this process's shard on the card) at 1,536,000
+    and 384,000, eager and with graphs per phase in turns (eager, graph,
+    graph, eager), every profile taken in both processes at once; prints
+    the cases, with the exchanges and graphs one replay makes."""
+    import numpy as np
+    import torch
+
+    from sdrreceiver_tpu_torch import flagship
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+
+    multihost.initialize(coord, 2, pid)
+    try:
+        mesh = multihost.global_mesh(1, ["cuda:0"])
+        plan = build_plan(flagship.benchmark_config())
+        out = []
+        for block in (1_536_000, 384_000):
+            raw = torch.tensor(np.random.default_rng(seed).integers(
+                100, 156, (2, 2 * block), dtype=np.uint8), device=mesh.home)
+            rxs = {"": ShardedReceiver(plan, mesh, block, cuda_graphs=False),
+                   ", graph": ShardedReceiver(plan, mesh, block)}
+            cases = _in_turns(rxs, ["", ", graph", ", graph", ""],
+                              f"flagship block {block} global mesh 2x1, process {pid} of 2",
+                              raw, calls, lockstep=True)
+            (entry,) = rxs[", graph"]._graphs._entries.values()
+            cases[1].update(graphs=0 if entry.graph is None else entry.graph.graphs, exchanges=len(entry.body.transfers.hosts),
+                            transfers=len(entry.body.transfers.bufs))
+            for case, name in zip(cases, rxs):
+                case["exchange_ms"] = [exchange_ms(rxs[name], raw) for _ in range(2)]
+            out += cases
+        print(json.dumps({"steps": out}))
+    finally:
+        multihost.shutdown()
+
+
+def exchange_ms(rx, raw, steps: int = 20) -> dict:
+    """Where the host's time goes at the exchanges of ``rx``, one process's
+    receiver of a mesh across processes: over ``steps`` steps after 3
+    (host clock, every process stepping at once), the wall ms per step and,
+    per exchange of a step in call order, its kind, the ms the host waits
+    for the cards before it (the graphs' ``_Exchange.wait``; the eager
+    step's copies wait inside ``ProcessSpan.staged``, not counted) and the
+    ms in its gloo call."""
+    import time
+
+    import torch
+
+    from sdrreceiver_tpu_torch.dist import meshgraph, multihost
+
+    log: list[tuple[str, str, float]] = []
+    comm, wait = multihost.ProcessSpan.communicate, meshgraph._Exchange.wait
+
+    def timed_comm(span, kind, send, recv):
+        t0 = time.perf_counter()
+        comm(span, kind, send, recv)
+        log.append((kind, "gloo", time.perf_counter() - t0))
+
+    def timed_wait(ex):
+        t0 = time.perf_counter()
+        wait(ex)
+        log.append((ex.kind, "wait", time.perf_counter() - t0))
+
+    st = rx.init_state()
+    for i in range(3):
+        st, _ = rx.step_u8(st, raw[i % 2])
+    torch.cuda.synchronize()
+    multihost.ProcessSpan.communicate, meshgraph._Exchange.wait = timed_comm, timed_wait
+    try:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            st, _ = rx.step_u8(st, raw[i % 2])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        multihost.ProcessSpan.communicate, meshgraph._Exchange.wait = comm, wait
+    gloo = [(k, t) for k, what, t in log if what == "gloo"]
+    waits = [t for _, what, t in log if what == "wait"]
+    n = len(gloo) // steps
+    per = []
+    for j in range(n):
+        calls = range(j, len(gloo), n)
+        per.append([gloo[j][0],
+                    1e3 * sum(waits[i] for i in calls) / steps if waits else 0.0,
+                    1e3 * sum(gloo[i][1] for i in calls) / steps])
+    return {"wall_ms": wall, "exchanges": per}
+
+
+def _in_turns(rxs: dict, order: list[str], prefix: str, raw, calls: int,
+              lockstep: bool = False) -> list[dict]:
     """:func:`step_profile` of each receiver of ``rxs`` in ``order`` (each
     twice); per receiver one case ``prefix + name`` with the two profiles'
     times averaged and the second one's rows."""
     turns: dict[str, list[dict]] = {k: [] for k in rxs}
     for name in order:
-        turns[name].append(step_profile(rxs[name], raw, calls))
+        turns[name].append(step_profile(rxs[name], raw, calls, lockstep))
     out = []
     for name, (a, b) in turns.items():
         avg = {k: (a[k] + b[k]) / 2 for k in ("wall_ms", "profiled_ms", "device_us",
@@ -387,6 +529,10 @@ def main(argv=None) -> None:
                     help="another checkout's root, timed in turns with this one")
     ap.add_argument("--steps", action="store_true",
                     help="profile whole steps instead: one device against meshes on the card")
+    ap.add_argument("--procs", action="store_true",
+                    help="with --steps: a global mesh 2x1 over two processes on the card")
+    ap.add_argument("--proc-child", nargs=4, metavar=("COORD", "PID", "CALLS", "SEED"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.ab is not None:
         ab(args.ab.resolve(), pathlib.Path(__file__).resolve().parents[2], args.calls)
@@ -398,14 +544,24 @@ def main(argv=None) -> None:
     if not torch.cuda.is_available():
         sys.exit("devtime: no CUDA device")
     torch.backends.cudnn.allow_tf32 = False
+    if args.proc_child:
+        coord, pid, calls, seed = args.proc_child
+        proc_child(coord, int(pid), int(calls), int(seed))
+        return
     if args.steps:
-        steps = step_profiles()
+        steps = proc_step_profiles() if args.procs else step_profiles()
         for c in steps:
+            per_replay = (f", {c['graphs']} graphs and {c['exchanges']} exchanges a replay"
+                          if "exchanges" in c else "")
             print(f"{c['case']:58s} wall {c['wall_ms']:8.3f} ms (profiled "
                   f"{c['profiled_ms']:8.3f}), device {c['device_us']:8.1f} us over "
                   f"{c['rows_per_step']:.0f} CUDA rows (mix_cascade {c['mix_cascade_us']:.1f} "
-                  f"us), idle {c['idle_share']:.3f}")
-        extra = mesh_extra(steps)
+                  f"us), idle {c['idle_share']:.3f}{per_replay}")
+            for x in c.get("exchange_ms", []):
+                print(f"    host clock: {x['wall_ms']:.3f} ms a step; per exchange [kind, ms "
+                      f"waiting for the card, ms in gloo]: "
+                      f"{[[k, round(w, 4), round(g, 4)] for k, w, g in x['exchanges']]}")
+        extra = {} if args.procs else mesh_extra(steps)
         for case, diff in extra.items():
             over_graph = "stateful" in case or (" mesh " in case and case.endswith(", graph"))
             base = "the one-device graph" if over_graph else "one device, eager"

@@ -18,8 +18,10 @@ makes each call a boundary between two phases of CUDA graphs.  Nothing
 else in these functions crosses devices: per-shard constants come from the
 caller or are built once per device.  Where a mesh's shards span
 processes, ``span`` (``dist.multihost.ProcessSpan``) carries the transfers
-that cross a process boundary; ``span=None`` means this process computes
-every shard.
+that cross a process boundary, each one call of its ``exchange`` hook
+(which ``dist.meshgraph`` swaps, as it swaps ``move``): the halo into this
+process's first shard, the last shard's cascade history, the gathers;
+``span=None`` means this process computes every shard.
 
   * FIR/cascade halos: right shift of each shard's tail
     (:func:`right_halo`); shard 0 gets zeros, where the carried history goes
@@ -67,7 +69,7 @@ def halo_moves(xs: list[torch.Tensor], width: int, span=None, first=None):
     ``[head] + move(srcs, devices)``, or ``move(srcs, devices)`` where
     ``head`` is None (``first`` moved to global shard 0)."""
     tails = [x[..., -width:] for x in xs]
-    head = None if span is None else span.halo_from_left(tails[-1])
+    head = None if span is None else span.exchange("halo", tails[-1], xs[0].device)
     srcs, devs = tails[:-1], [x.device for x in xs[1:]]
     if first is not None and _first(span) == 0:
         return None, [first] + srcs, [xs[0].device] + devs
@@ -84,10 +86,11 @@ def right_halo(xs: list[torch.Tensor], width: int, span=None) -> list[torch.Tens
 
 def gather(vs: list[torch.Tensor], device, span=None, move: Move = to_devices) -> list[torch.Tensor]:
     """Every shard's value, in time order, on ``device`` (an all-gather)."""
-    here = move(vs, [torch.device(device)] * len(vs))
+    device = torch.device(device)
+    here = move(vs, [device] * len(vs))
     if span is None:
         return here
-    return list(span.all_gather(torch.stack(here)).to(device))
+    return list(span.exchange("gather", torch.stack(here), device))
 
 
 def timeshard_cascade_local(
@@ -120,7 +123,7 @@ def timeshard_cascade_local(
             new_hists.append(moved.pop())
         else:
             moved = move(srcs, devs)
-            new_hists.append(span.from_last(last).to(hist.device))
+            new_hists.append(span.exchange("last", last, hist.device))
         lefts = moved if head is None else [head] + moved
         ys = [
             fir.conv_block_planar(left, y, rt, stride=2)[1]

@@ -1,5 +1,6 @@
-"""CUDA graphs for the step entries of a :class:`~.sharded.ShardedReceiver`
-whose mesh lives in one process: one graph per phase and card.
+"""CUDA graphs for the step entries of a :class:`~.sharded.ShardedReceiver`:
+one graph per phase and card, whether the mesh lives in one process or
+spans several.
 
 Counterpart of the JAX package's compiled sharded step, where the front
 runs inside ``jax.shard_map`` and each entry is one XLA executable of
@@ -13,15 +14,26 @@ cards is cut where data crosses devices:
   and back).  It copies into static buffers of its own, made on the body's
   first run and reused by every later run in call order: a peer copy
   between two cards, a copy within one;
-* a **phase** is the compute between two transfers.  Each card that
-  computes in it has one graph holding the work of all its shards.
+* an **exchange** is one call of ``ProcessSpan.exchange`` where the mesh
+  spans processes (the halo into this process's first shard, the last
+  shard's cascade history, the gathers of the DC totals, the input tail
+  and each group's outputs).  Its data goes through static host buffers
+  (pinned on the card) and a static destination on the card, made on the
+  body's first run: the phase before it ends by copying the source into
+  the send buffer, the host waits for the cards of its source and its
+  destination and runs the gloo call on the host buffers, and the phase
+  after it begins by copying the receive buffer to the destination;
+* a **phase** is the compute between two transfers or exchanges.  Each
+  card that computes in it has one graph holding the work of all its
+  shards.
 
 Replaying an entry runs, phase by phase, the graphs of the cards that
-compute in it and then the transfer's copies.  Each card's stream keeps
-its own order, and torch's copy between two cards waits on both cards'
-streams, so nothing waits on the host.  A mesh on one card (``[cuda:0] *
-4``) takes the same path, one graph per phase, so one card runs the code
-that four run.
+compute in it and then the transfer's copies or the exchange's host part.
+Each card's stream keeps its own order, and torch's copy between two cards
+waits on both cards' streams, so within a process nothing waits on the
+host; only an exchange does, because gloo reads and writes host memory.  A
+mesh on one card (``[cuda:0] * 4``) takes the same path, one graph per
+phase, so one card runs the code that four run.
 
 Everything else is :class:`~..graph.cudagraph.StepGraphs`': one set of
 graphs per entry (the single step, each burst size k with k steps of
@@ -31,6 +43,15 @@ card, the state donated (the receiver's buffers on the home device updated
 in place), the outputs copied out after the last phase, and each replay
 adding to the wrappers' ``launches`` what its capture recorded.  A failed
 capture raises; no phase falls back to the eager step.
+
+Across processes the warm-up runs really exchange data, so every process
+runs the same entries in the same order, each with its ``WARMUP_STEPS``
+warm-up runs, in lockstep (gloo pairs the calls by order; the receivers
+of a global mesh step the same blocks).  The capture exchanges nothing:
+it records the copies into and out of the host buffers, and no data is
+real yet.  Each replay then makes every exchange once.  A peer that died
+makes the gloo call raise (at the latest after ``multihost.TIMEOUT_S``),
+and the step with it.
 
 Several captures are open at once on one thread (one per card), and one
 is ended and instantiated while the others run, so they capture in
@@ -47,13 +68,14 @@ devices or on a card that is not capturing: outside a transfer such an
 op would run once, at capture, and never again.
 
 On the CPU nothing is captured: each call runs the body with its
-transfers copying into the same static buffers; that is what the CPU
-tests hold.
+transfers and exchanges going through the same static buffers; that is
+what the CPU tests hold.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import warnings
 
@@ -109,14 +131,15 @@ class _Cards(TorchDispatchMode):
 
 
 class _Recorder(TorchDispatchMode):
-    """The capture of one entry: between two transfers every card's
-    capture is open; :meth:`boundary` closes them, keeps the graphs of the
-    cards that computed, and records the transfer's copies."""
+    """The capture of one entry: between two transfers or exchanges every
+    card's capture is open; :meth:`boundary` closes them, keeps the graphs
+    of the cards that computed, and records what runs between this phase
+    and the next (the transfer's copies, the exchange's host part)."""
 
     def __init__(self, cards: list[torch.device], pools: dict):
         super().__init__()
         self.cards, self.pools = cards, pools
-        self.steps: list[tuple[list, tuple | None]] = []
+        self.steps: list[tuple[list, object]] = []
         self.open: dict = {}  # card -> its graph, while its capture is open
         self.checking = False  # inside a phase (not inside torch's capture calls)
         self.touched: set[torch.device] = set()
@@ -146,7 +169,7 @@ class _Recorder(TorchDispatchMode):
             self.open[d] = g
         self.touched, self.checking = set(), True
 
-    def close_phase(self, copies: tuple | None = None) -> None:
+    def close_phase(self, after=None) -> None:
         self.checking = False
         kept = []
         for d, g in list(self.open.items()):
@@ -155,15 +178,16 @@ class _Recorder(TorchDispatchMode):
                 g.capture_end()
             del self.open[d]
             (kept if d in self.touched else self.empty).append(g)
-        self.steps.append((kept, copies))
+        self.steps.append((kept, after))
 
-    def boundary(self, srcs: list[torch.Tensor], dsts: list[torch.Tensor]) -> None:
-        self.close_phase((dsts, srcs))
+    def boundary(self, after) -> None:
+        self.close_phase(after)
         self.open_phase()
 
     def abandon(self) -> None:
         """End the captures left open by a failure (their graphs are
-        discarded) so the cards' streams leave capture mode."""
+        discarded) so the cards' streams leave capture mode; called with
+        the capturing streams current."""
         self.checking = False
         for d, g in self.open.items():
             with torch.cuda.device(d), contextlib.suppress(RuntimeError), \
@@ -173,16 +197,48 @@ class _Recorder(TorchDispatchMode):
         self.open = {}
 
 
-class _Transfers:
-    """The transfers of one entry's body, in call order: the k-th call of
-    a run copies its tensors into the k-th set of static buffers (made on
-    the first run), so every run moves the same data between the same
-    buffers.  While ``recorder`` captures, each call is a phase boundary
-    and its copies are recorded for the replays instead of made."""
+class _Exchange:
+    """One exchange across processes of an entry's body: its host buffers
+    and its destination on ``device``, made once; called, the host's part
+    of it (wait for the cards of its source and destination, then the gloo
+    call on the host buffers)."""
 
-    def __init__(self):
+    def __init__(self, span, kind: str, v: torch.Tensor, device):
+        self.span, self.kind = span, kind
+        self.send, self.recv = span.host_buffers(kind, v)
+        self.dst = torch.empty(self.recv.shape, dtype=v.dtype, device=device)
+        self.cards = {d for d in (v.device, self.dst.device) if d.type == "cuda"}
+
+    def fits(self, kind: str, v: torch.Tensor, device) -> bool:
+        return (kind == self.kind and v.shape == self.send.shape and v.dtype == self.send.dtype
+                and torch.device(device) == self.dst.device)
+
+    def wait(self) -> None:
+        """Wait for the cards: the send buffer is written, the receive
+        buffer read by the last replay's copy out of it."""
+        for d in self.cards:
+            torch.cuda.synchronize(d)
+
+    def __call__(self) -> None:
+        self.wait()
+        self.span.communicate(self.kind, self.send, self.recv)
+
+
+class _Transfers:
+    """The transfers and exchanges of one entry's body, each in call order:
+    the k-th transfer of a run copies its tensors into the k-th set of
+    static buffers, the k-th exchange goes through the k-th
+    :class:`_Exchange` (both made on the first run), so every run moves the
+    same data between the same buffers.  While ``recorder`` captures, each
+    call is a phase boundary: the copies of a transfer, and the host part
+    of an exchange, are recorded for the replays instead of made."""
+
+    def __init__(self, span=None):
+        self.span = span
         self.bufs: list[list[torch.Tensor]] = []
         self.calls = 0
+        self.hosts: list[_Exchange] = []
+        self.exchanges = 0
         self.recorder: _Recorder | None = None
 
     def __call__(self, ts, devs) -> list[torch.Tensor]:
@@ -195,10 +251,29 @@ class _Transfers:
                                        for d, t in zip(dsts, ts)):
             raise RuntimeError("a transfer of the mesh step changed between runs")
         if self.recorder is not None:
-            self.recorder.boundary(ts, dsts)
+            self.recorder.boundary(functools.partial(_copy, dsts, ts))
         else:
             _copy(dsts, ts)
         return list(dsts)
+
+    def exchange(self, kind: str, v: torch.Tensor, device) -> torch.Tensor:
+        """``ProcessSpan.exchange`` through this body's static buffers: the
+        source copied into the send buffer at the end of a phase, the host
+        part between the phases, the receive buffer copied to the static
+        destination at the start of the next phase."""
+        if self.exchanges == len(self.hosts):
+            self.hosts.append(_Exchange(self.span, kind, v, device))
+        ex = self.hosts[self.exchanges]
+        self.exchanges += 1
+        if not ex.fits(kind, v, device):
+            raise RuntimeError("an exchange of the mesh step changed between runs")
+        ex.send.copy_(v, non_blocking=True)
+        if self.recorder is not None:
+            self.recorder.boundary(ex)
+        else:
+            ex()
+        ex.dst.copy_(ex.recv, non_blocking=True)
+        return ex.dst
 
 
 class _MeshBody:
@@ -206,11 +281,12 @@ class _MeshBody:
     :class:`_Transfers`."""
 
     def __init__(self, rx, body):
-        self.rx, self.body, self.transfers = rx, body, _Transfers()
+        self.rx, self.body, self.transfers = rx, body, _Transfers(rx._span)
 
     def __call__(self, state: dict | None = None) -> dict:
-        self.transfers.calls = 0
-        with self.rx._transfers(self.transfers):
+        t = self.transfers
+        t.calls = t.exchanges = 0
+        with self.rx._transfers(t, t.exchange):
             return self.body(state)
 
 
@@ -224,8 +300,8 @@ def _on_streams(streams):
 
 
 class MeshGraphs(StepGraphs):
-    """:class:`StepGraphs` for a mesh in one process: an entry's "graph"
-    is its program of phase graphs and transfers (:class:`_Program`)."""
+    """:class:`StepGraphs` for a mesh: an entry's "graph" is its program of
+    phase graphs, transfers and exchanges (:class:`_Program`)."""
 
     def __init__(self, rx):
         super().__init__(rx)
@@ -269,12 +345,14 @@ class MeshGraphs(StepGraphs):
         gc.disable()
         try:
             with _on_streams(self.streams[d] for d in cards), rec:
-                rec.open_phase()
-                outputs = body()
-                rec.close_phase()
-        except BaseException:
-            rec.abandon()
-            raise
+                try:
+                    rec.open_phase()
+                    outputs = body()
+                    rec.close_phase()
+                except BaseException:
+                    # a capture ends only on the stream it began on
+                    rec.abandon()
+                    raise
         finally:
             body.transfers.recorder = None
             if collecting:
@@ -287,9 +365,10 @@ class MeshGraphs(StepGraphs):
 
 class _Program:
     """A captured entry: per phase the graphs of the cards that compute in
-    it, then the copies of the transfer that ends it."""
+    it, then what ends it: the copies of a transfer, the host part of an
+    exchange, or nothing after the last phase."""
 
-    def __init__(self, steps: list[tuple[list, tuple | None]]):
+    def __init__(self, steps: list[tuple[list, object]]):
         self.steps = steps
 
     @property
@@ -298,8 +377,8 @@ class _Program:
         return sum(len(g) for g, _ in self.steps)
 
     def replay(self) -> None:
-        for graphs, copies in self.steps:
+        for graphs, after in self.steps:
             for g in graphs:
                 g.replay()
-            if copies is not None:
-                _copy(*copies)
+            if after is not None:
+                after()

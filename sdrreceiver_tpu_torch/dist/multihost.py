@@ -20,8 +20,9 @@ output.  Egress stays per process: :func:`egress_owner` gives each group's
 topics to one process.
 
 Transport: ``torch.distributed`` over gloo (TCP on the host network, the
-JAX package's DCN).  CUDA tensors are staged through pinned host memory;
-the payloads are KB-scale halos and the per-block output gather.
+JAX package's DCN).  CUDA tensors are staged through pinned host buffers
+made once per exchange; the payloads are KB-scale halos and the
+per-block output gather.
 :func:`initialize` joins the process group for both partitions.
 """
 
@@ -175,9 +176,20 @@ def global_mesh(n_chan: int = 1, devices=None):
 
 class ProcessSpan:
     """The time shards ``[lo, hi)`` of ``n`` that this process computes in a
-    mesh spanning processes, and the transfers that cross its boundaries
-    (gloo; CUDA tensors staged through pinned host memory).  Every process
-    calls each method in the same order."""
+    mesh spanning processes, and the exchanges that cross its boundaries.
+
+    Every exchange goes through :attr:`exchange`, ``exchange(kind, v,
+    device)``: ``"halo"`` gives the previous process's ``v`` (zeros on the
+    process of global shard 0), ``"last"`` the ``v`` of the process that
+    owns the last shard, ``"gather"`` every process's ``v [k, ...]``
+    concatenated in process order; the result lies on ``device``.  The
+    default, :meth:`staged`, runs eagerly; ``dist.meshgraph`` swaps in one
+    that makes each exchange a boundary between two phases of CUDA graphs.
+    Both move the data through host buffers made once (:meth:`host_buffers`,
+    pinned for a card) and run the gloo call on them (:meth:`communicate`).
+    Every process makes the same exchanges in the same order: gloo pairs
+    them by order.  A peer that is gone makes the call raise, at the latest
+    after :data:`TIMEOUT_S`."""
 
     def __init__(self, mesh):
         rows = mesh.rows()
@@ -186,42 +198,51 @@ class ProcessSpan:
         self.prev = mesh.ranks[self.lo - 1][0] if self.lo > 0 else None
         self.next = mesh.ranks[self.hi][0] if self.hi < self.n else None
         self.last = mesh.ranks[-1][0]
+        self.world = len({r for row in mesh.ranks for r in row})
+        self.exchange = self.staged
+        self._staging: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
-    @staticmethod
-    def _host(v: torch.Tensor) -> torch.Tensor:
-        h = torch.empty(v.shape, dtype=v.dtype, pin_memory=v.is_cuda)
-        h.copy_(v)
-        return h
+    def host_buffers(self, kind: str, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(send, recv)``: host buffers for an exchange of ``v`` (pinned
+        where ``v`` is on a card; one buffer for ``"last"``, a broadcast in
+        place).  ``recv`` starts as zeros: the halo global shard 0 gets."""
+        pin = v.is_cuda
+        send = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+        if kind == "last":
+            return send, send
+        shape = (self.world * v.shape[0], *v.shape[1:]) if kind == "gather" else v.shape
+        return send, torch.zeros(shape, dtype=v.dtype, pin_memory=pin)
 
-    def halo_from_left(self, tail: torch.Tensor) -> torch.Tensor:
-        """Send this process's last ``tail`` to the next process; return the
-        previous process's (zeros for global shard 0) on ``tail``'s
-        device."""
+    def communicate(self, kind: str, send: torch.Tensor, recv: torch.Tensor) -> None:
+        """The gloo call of one exchange, from ``send`` into ``recv``."""
         dist = _dist()
-        reqs = []
-        if self.next is not None:
-            reqs.append(dist.isend(self._host(tail.contiguous()), self.next))
-        got = torch.zeros(tail.shape, dtype=tail.dtype)
-        if self.prev is not None:
-            reqs.append(dist.irecv(got, self.prev))
-        for r in reqs:
-            r.wait()
-        return got.to(tail.device)
+        if kind == "halo":
+            reqs = []
+            if self.next is not None:
+                reqs.append(dist.isend(send, self.next))
+            if self.prev is not None:
+                reqs.append(dist.irecv(recv, self.prev))
+            for r in reqs:
+                r.wait()
+        elif kind == "last":
+            dist.broadcast(send, self.last)
+        elif kind == "gather":
+            dist.all_gather(list(recv.chunk(self.world)), send)
+        else:
+            raise ValueError(f"unknown exchange {kind!r}")
 
-    def from_last(self, v: torch.Tensor) -> torch.Tensor:
-        """The value of the process that owns the last shard."""
-        h = self._host(v.contiguous()) if self.rank == self.last else torch.empty(v.shape, dtype=v.dtype)
-        _dist().broadcast(h, self.last)
-        return h.to(v.device)
-
-    def all_gather(self, v: torch.Tensor) -> torch.Tensor:
-        """``v [k, ...]`` of every process (all the same shape),
-        concatenated in process order on ``v``'s device."""
-        dist = _dist()
-        h = self._host(v.contiguous())
-        parts = [torch.empty_like(h) for _ in range(dist.get_world_size())]
-        dist.all_gather(parts, h)
-        return torch.cat(parts).to(v.device)
+    def staged(self, kind: str, v: torch.Tensor, device) -> torch.Tensor:
+        """The eager exchange: ``v`` copied into host buffers kept per kind,
+        shape and dtype, the gloo call, the result copied to a new tensor
+        on ``device``.  The copies wait for the card, so the buffers are
+        free again when it returns."""
+        key = (kind, tuple(v.shape), v.dtype, v.is_cuda)
+        if key not in self._staging:
+            self._staging[key] = self.host_buffers(kind, v)
+        send, recv = self._staging[key]
+        send.copy_(v)
+        self.communicate(kind, send, recv)
+        return recv.to(device, copy=True)
 
 
 def egress_owner(plan: ReceiverPlan, n_hosts: int) -> dict[int, int]:

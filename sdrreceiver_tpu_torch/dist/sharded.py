@@ -28,15 +28,18 @@ Every transfer between devices goes through ``ShardedReceiver._move``,
 once per exchange for every shard together: the raw block out to the
 shards, the DC totals in and the starting means out, the halos (with the
 shard NCO phases), the input tail and the group outputs in, and per split
-bucket its channel ranges out and back.  Between two transfers each card
-computes on its own, so on the card (``cuda_graphs=True``, the default for
-a mesh in one process) each step entry replays one CUDA graph per phase and
-card with the transfers as copies between static buffers in between
+bucket its channel ranges out and back.  Where the mesh spans processes,
+what crosses a process boundary (the halo into the process's first shard,
+the DC totals, the input tail, the group outputs and the last shard's
+cascade histories) is one call of ``ProcessSpan.exchange`` each, a gloo
+call on host buffers.  Between two transfers or exchanges each card
+computes on its own, so on the card (``cuda_graphs=True``, the default)
+each step entry replays one CUDA graph per phase and card, with the
+transfers as copies between static buffers and the exchanges as copies
+through static pinned buffers around the gloo call in between
 (``dist.meshgraph``), the counterpart of the JAX package's one compiled
 ``shard_map`` step.  ``cuda_graphs=False`` runs the same step eagerly, its
-transfers as plain ``.to()`` copies.  A mesh across processes moves data
-through gloo inside the step and runs eagerly: it refuses
-``cuda_graphs=True``.
+transfers as plain ``.to()`` copies.
 """
 
 from __future__ import annotations
@@ -110,9 +113,9 @@ class ShardedReceiver(CompiledReceiver):
     shape ``(n_time, n_chan)`` over :func:`~.mesh.local_devices` of
     ``device`` (the card unless ``device="cpu"``).  Takes every
     CompiledReceiver option; the block must be a multiple of the plan's
-    divisor times ``n_time``.  ``cuda_graphs`` defaults to True for a mesh
-    in one process (phase graphs on the card, eager on the CPU) and to
-    False for a mesh across processes, which refuses True."""
+    divisor times ``n_time``.  ``cuda_graphs`` defaults to True, whether or
+    not the mesh spans processes (phase graphs on the card, eager on the
+    CPU)."""
 
     _graphs_type = MeshGraphs
 
@@ -143,17 +146,11 @@ class ShardedReceiver(CompiledReceiver):
         # every transfer of the step, one call per exchange (swapped by
         # dist.meshgraph for its static buffers and phase boundaries)
         self._move = halo.to_devices
-        cuda_graphs = kwargs.pop("cuda_graphs", not mesh.multiprocess)
         if mesh.multiprocess:
             from .multihost import ProcessSpan
 
-            if cuda_graphs:
-                raise ValueError(
-                    "a mesh across processes runs eagerly (its transfers wait on gloo "
-                    "inside the step): cuda_graphs=True is not supported"
-                )
             self._span = ProcessSpan(mesh)
-        super().__init__(plan, block, device=mesh.home, cuda_graphs=cuda_graphs, **kwargs)
+        super().__init__(plan, block, device=mesh.home, **kwargs)
         # each bucket of at least n_chan channels: contiguous ranges over
         # the chan devices of this process's first time row
         self._chan_parts: dict[str, list] = {}
@@ -173,14 +170,22 @@ class ShardedReceiver(CompiledReceiver):
 
     # --------------------------------------------------------- transfers
     @contextlib.contextmanager
-    def _transfers(self, move):
-        """Make the step's transfers through ``move`` (``dist.meshgraph``'s
-        static buffers and phase boundaries) while the context lasts."""
-        prev, self._move = self._move, move
+    def _transfers(self, move, exchange):
+        """Make the step's transfers through ``move`` and, where the mesh
+        spans processes, its exchanges through ``exchange``
+        (``dist.meshgraph``'s static buffers and phase boundaries) while
+        the context lasts."""
+        span = self._span
+        prev = self._move, span and span.exchange
+        self._move = move
+        if span is not None:
+            span.exchange = exchange
         try:
             yield
         finally:
-            self._move = prev
+            self._move = prev[0]
+            if span is not None:
+                span.exchange = prev[1]
 
     def _build_kernels(self) -> None:
         super()._build_kernels()

@@ -18,6 +18,9 @@ the card), with the same static input, state and outputs.
 4. The contract: outputs survive later steps, donated state, resuming from
    ``import_state``, checkpoints crossing to the one-device receiver and to
    the JAX package, and the constructor's defaults and refusals.
+
+A mesh across processes runs the same bodies with its gloo exchanges
+between the phases: ``tests/test_torch_procgraphs.py``.
 """
 
 import warnings
@@ -260,8 +263,12 @@ def test_mesh_constructor_defaults_and_refusals():
     assert ShardedReceiver(plan, (2, 1), 49152, device="cpu", cuda_graphs=False).cuda_graphs is False
     with pytest.raises(ValueError, match="cuda_graphs=True needs use_kernels=True"):
         ShardedReceiver(plan, (2, 1), 49152, device="cpu", use_kernels=False)
-    # a mesh across processes steps eagerly: gloo waits inside the step
+    # a mesh across processes takes graphs too (its gloo exchanges between
+    # the phases), eager on the CPU; the plain versions still refuse them
     two = Mesh([["cpu"], ["cpu"]], ranks=[[0], [1]], rank=0)
-    with pytest.raises(ValueError, match="a mesh across processes runs eagerly"):
-        ShardedReceiver(plan, two, 49152, cuda_graphs=True)
-    assert ShardedReceiver(plan, two, 49152).cuda_graphs is False
+    rx = ShardedReceiver(plan, two, 49152)
+    assert rx.cuda_graphs is True and rx._graphs is None and rx._span is not None
+    assert ShardedReceiver(plan, two, 49152, cuda_graphs=True).cuda_graphs is True
+    assert ShardedReceiver(plan, two, 49152, cuda_graphs=False).cuda_graphs is False
+    with pytest.raises(ValueError, match="cuda_graphs=True needs use_kernels=True"):
+        ShardedReceiver(plan, two, 49152, use_kernels=False)
