@@ -89,24 +89,30 @@ its result and failing the script (non-zero exit) if it fails:
      process of its own, exits non-zero)
  21. the sharded receiver's step entries as CUDA graphs across processes:
      the flagship on a ``--partition global`` mesh 2x1 over two processes
-     on the card (``chip_smoke.py --procgraphs``, and a global 4x1 over two
-     processes of two distinct cards each where there are four cards), at
+     on the card (``chip_smoke.py --procgraphs``; gloo exchanges between
+     the phases), and where there are two cards or more a global 2x1 with
+     a card a process (and with four, a global 4x1 of two cards a
+     process), whose exchanges are NCCL collectives inside the graphs, at
      1,536,000 and 384,000, graphs against the eager step in each process:
-     outputs and exported state bit-equal, ``step_many_u8`` k=4 bit-equal
-     to 4 graph steps, each process's per-shard mix-cascade site against
-     its plain version, the same ``mix_cascade`` launches and profiler rows
-     per replay as per eager step, step ms in turns, graphs, transfers and
-     gloo exchanges per replay, device µs, idle share and peak memory;
-     then the first card runs of ``bench --coordinator`` under both
-     partitions (eff(2), ``sps_1_full_plan``) and of ``run --coordinator
-     --partition global --mesh 2x1`` over loopback rtl_tcp (no drop, each
-     process's ZMQ audio bit-equal to its own topics of the one-process 2x1
-     mesh's ``step_u8``), and a capture that fails in one process of two
+     outputs and exported state bit-equal (on distinct cards also to the
+     same graphs with gloo exchanges), ``step_many_u8`` k=4 bit-equal to 4
+     graph steps, each process's per-shard mix-cascade site against its
+     plain version, the same ``mix_cascade`` launches and profiler rows
+     per replay as per eager step, step ms in turns, graphs, transfers,
+     host exchanges and NCCL rows per replay, device µs, idle share and
+     peak memory; then the first card runs of ``bench --coordinator``
+     under both partitions (eff(2), ``sps_1_full_plan``; ``"exchange":
+     "gloo"`` on one card) and of ``run --coordinator --partition global
+     --mesh 2x1`` over loopback rtl_tcp (no drop, each process's ZMQ audio
+     bit-equal to its own topics of the one-process 2x1 mesh's
+     ``step_u8``), and a capture that fails in one process of two
      (``chip_smoke.py --capture-failure-procs``): both processes exit
      non-zero, the peer on its next exchange
 
-``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes and
-phase 21's four-card mesh (a machine of four cards).
+``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes,
+phase 21's meshes on distinct cards (2x1 and 4x1, NCCL) and the capture
+failure on distinct cards (a machine of four cards);
+``chip_smoke.py --procs-on-cards`` only the last two (two cards or more).
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -1375,14 +1381,24 @@ def processes(argvs: list[list], timeout: float = 300.0,
     :func:`cli_child`) in one process per argv, all at once, each with
     ``envs[i]`` added to its environment; (exit code, stdout, stderr) of
     each.  A process still running after ``timeout`` s is killed (exit
-    code -9)."""
+    code -9) and gives what it printed; 15 s before that it prints every
+    thread's stack to its stderr (``SMOKE_DUMP_S``)."""
     envs = envs or [{}] * len(argvs)
+    dump = {"SMOKE_DUMP_S": str(max(timeout - 15, 1))}
     procs = [subprocess.Popen([sys.executable, str(REPO / "chip_smoke.py"), *map(str, a)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
-                              env=dict(os.environ, PYTHONPATH=str(REPO), **e), cwd=str(REPO))
+                              env=dict(os.environ, PYTHONPATH=str(REPO), **dump, **e),
+                              cwd=str(REPO))
              for a, e in zip(argvs, envs)]
+    deadline = time.monotonic() + timeout
+    res = []
     try:
-        res = [p.communicate(timeout=timeout) for p in procs]
+        for p in procs:
+            try:
+                res.append(p.communicate(timeout=max(deadline - time.monotonic(), 0.1)))
+            except subprocess.TimeoutExpired:
+                p.kill()
+                res.append(p.communicate())
     finally:
         for p in procs:
             if p.poll() is None:
@@ -1492,12 +1508,13 @@ def bit_equal(a: list[dict], b: list[dict]) -> bool:
         x.keys() == y.keys() and all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(a, b))
 
 
-def step_turns(rxs: dict, entry: str, blocks, reps: int) -> dict[str, list[float]]:
+def step_turns(rxs: dict, entry: str, blocks, reps: int,
+               order=("eager", "graph", "graph", "eager")) -> dict[str, list[float]]:
     """Median ms per step of each receiver by CUDA events between
-    consecutive steps, in turns (eager, graph, graph, eager)."""
+    consecutive steps, in turns (``order``)."""
     states = {k: r.init_state() for k, r in rxs.items()}
     out: dict[str, list[float]] = {k: [] for k in rxs}
-    for key in ("eager", "graph", "graph", "eager"):
+    for key in order:
         fn, st = getattr(rxs[key], f"step_{entry}"), states[key]
         for i in range(3):
             st, _ = fn(st, blocks[i % len(blocks)])
@@ -1557,13 +1574,14 @@ def step_rows(rx, entry: str, blocks, calls: int = 10, lockstep: bool = False) -
 
 
 def row_kinds(rows: dict) -> dict[str, float]:
-    """Per-step counts of the DC kernel, the mix-cascade kernel, memsets and
-    every CUDA row."""
+    """Per-step counts of the DC kernel, the mix-cascade kernel, memsets,
+    NCCL kernels and every CUDA row."""
     def n(f):
         return sum(c for k, c in rows.items() if f(k))
     return {"dc_": n(lambda k: "dc_ingest_kernel" in k),
             "mix_cascade": n(lambda k: "mix_cascade_kernel" in k),
-            "memset": n(lambda k: "memset" in k.lower()), "rows": n(lambda k: True)}
+            "memset": n(lambda k: "memset" in k.lower()),
+            "nccl": n(lambda k: "nccl" in k.lower()), "rows": n(lambda k: True)}
 
 
 def phase_graphs(dev, card: str, reps: int) -> dict:
@@ -1871,72 +1889,115 @@ def proc_graphs_child(argv: list[str]) -> int:
     blocks, the burst, the launches, step ms in turns, the profiler's rows
     (both processes profile at once) and peak memory; a last line of JSON
     with the numbers.  Both processes make the same steps in the same
-    order: every step exchanges data through gloo."""
-    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+    order: every step exchanges data between them.  Where the processes
+    hold distinct cards the exchanges are NCCL collectives inside the
+    graphs: then a third receiver, the same graphs with the exchanges
+    staged through gloo (``ProcessSpan(mesh, transport="staged")``), is
+    held bit-equal too and timed in the same turns; a replay must make no
+    host exchange and run NCCL kernels, every per-shard ``mix_cascade``
+    site must agree with its plain version exactly.  Sharing a card, the
+    exchanges must be gloo's."""
+    from sdrreceiver_tpu_torch.dist import multihost
 
     coord, pid, n_local = argv[0], int(argv[1]), int(argv[2])
     mesh, plan = proc_mesh(coord, pid, n_local)
     cards = [str(d) for d in mesh.local()]
-    n, out = 4, []
-    for block in (BLOCK, LIVE_BLOCK):
-        blocks = torch.tensor(plan_stream(plan, n, block, seed=21), device=mesh.home)
-        what = (f"process {pid} of 2, global {mesh.shape['time']}x1 on {cards} "
-                f"(visible cards {os.environ.get('CUDA_VISIBLE_DEVICES', 'all')}), block {block}")
-
-        def make(graphs: bool = True):
-            return ShardedReceiver(plan, mesh, block, cuda_graphs=graphs)
-
-        rxs = {"graph": make(), "eager": make(False)}
-        got, g_states = entry_run(rxs["graph"], "u8", blocks)
-        ref, e_states = entry_run(rxs["eager"], "u8", blocks)
-        launches = {k: path_launches(r) for k, r in rxs.items()}
-        (entry,) = rxs["graph"]._graphs._entries.values()
-        per_replay = {"graphs": 0 if entry.graph is None else entry.graph.graphs,
-                      "transfers": len(entry.body.transfers.bufs),
-                      "exchanges": len(entry.body.transfers.hosts)}
-        same = bit_equal(got, ref) and bit_equal(g_states, e_states)
-        print(f"{what}: graph vs eager over {n} blocks, outputs {len(got[0])} keys and exported "
-              f"state bit-equal: {same}; launches {launches} (expected {n} each); a replay runs "
-              f"{per_replay}", flush=True)
-        if not same or launches["graph"] != launches["eager"] or not launches["graph"] \
-                or any(v != n for v in launches["graph"].values()) \
-                or not per_replay["exchanges"]:
-            fail(f"{what}: the graphs differ from the eager step or missed a launch")
-        gx = rxs["graph"]
-        st, many = gx.step_many_u8(gx.init_state(), blocks[:4])
-        burst = [{k: v.cpu().numpy() for k, v in o.items()} for o in gx.unstack_outputs(many, 4)]
-        same = bit_equal(burst, got[:4]) and bit_equal([gx.export_state(st)], g_states[3:4])
-        print(f"{what}: step_many_u8 k=4 vs 4 graph steps bit-equal: {same}", flush=True)
-        if not same:
-            fail(f"{what}: the burst graphs differ from 4 graph steps")
-        err = sites_vs_plain(gx, what)["err"]
-        turns = step_turns(rxs, "u8", blocks, 20)
-        ms = {k: float(np.mean(v)) for k, v in turns.items()}
-        prof = {k: step_rows(r, "u8", blocks, lockstep=True) for k, r in rxs.items()}
-        kinds = {k: row_kinds(p["rows"]) for k, p in prof.items()}
-        mem = {"eager": peak_mib(lambda: make(False), "u8", blocks),
-               "graph": peak_mib(make, "u8", blocks)}
-        idle = {k: 1.0 - prof[k]["device_us"] / 1e3 / ms[k] for k in ms}
-        for k in ("eager", "graph"):
-            print(f"{what} {k}: {ms[k]:.4f} ms/step (medians in turns {turns[k]}); profiled: "
-                  f"{prof[k]['wall_ms']:.4f} ms/step, device {prof[k]['device_us']:.1f} us over "
-                  f"{kinds[k]['rows']:g} CUDA rows, idle share {idle[k]:.3f}; rows {kinds[k]}; "
-                  f"wrapper launches per step {prof[k]['launched']}; peak device memory "
-                  f"{mem[k]:.1f} MiB", flush=True)
-        per_step = sum(prof["graph"]["launched"].values())
-        if kinds["graph"]["mix_cascade"] != kinds["eager"]["mix_cascade"] \
-                or kinds["graph"]["mix_cascade"] != per_step or per_step != len(mesh.rows()):
-            fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade rows, "
-                 f"the eager step {kinds['eager']['mix_cascade']:g}, the wrappers count "
-                 f"{per_step:g}")
-        out.append({"block": block, "err": err, "ms": ms, "turns": turns, "idle": idle,
-                    "mem": mem,
-                    "kinds": kinds, **per_replay,
-                    "device_us": {k: p["device_us"] for k, p in prof.items()},
-                    "profiled_ms": {k: p["wall_ms"] for k, p in prof.items()}})
+    # each case's receivers are gone before the process group is left: a
+    # graph that captured NCCL collectives holds their communicator
+    out = [proc_graphs_case(mesh, plan, block, cards) for block in (BLOCK, LIVE_BLOCK)]
     multihost.shutdown()
     print(json.dumps({"process_id": pid, "cards": cards, "cases": out}))
     return 0
+
+
+def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
+    """One block size of :func:`proc_graphs_child`: its checks, and its
+    numbers."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+
+    pid, n = mesh.rank, 4
+    blocks = torch.tensor(plan_stream(plan, n, block, seed=21), device=mesh.home)
+
+    def make(graphs: bool = True, transport: str | None = None):
+        rx = ShardedReceiver(plan, mesh, block, cuda_graphs=graphs)
+        if transport is not None:
+            rx._span = multihost.ProcessSpan(mesh, transport=transport)
+        return rx
+
+    rxs = {"graph": make(), "eager": make(False)}
+    nccl = rxs["graph"].exchange == "nccl"
+    if nccl:
+        rxs["gloo"] = make(transport="staged")
+    exchange = {k: r.exchange for k, r in rxs.items()}
+    what = (f"process {pid} of 2, global {mesh.shape['time']}x1 on {cards} "
+            f"(visible cards {os.environ.get('CUDA_VISIBLE_DEVICES', 'all')}), block {block}, "
+            f"exchanges {exchange}")
+    if exchange != ({"graph": "nccl", "eager": "nccl", "gloo": "gloo"} if nccl
+                    else {"graph": "gloo", "eager": "gloo"}):
+        fail(f"{what}: not the transport its cards call for")
+    runs = {}
+    for k, r in rxs.items():
+        runs[k] = entry_run(r, "u8", blocks)
+        print(f"{what}: {k} stepped {n} blocks", flush=True)
+    got, g_states = runs["graph"]
+    launches = {k: path_launches(r) for k, r in rxs.items()}
+    (entry,) = rxs["graph"]._graphs._entries.values()
+    t = entry.body.transfers
+    per_replay = {"graphs": 0 if entry.graph is None else entry.graph.graphs,
+                  "transfers": len(t.bufs), "exchanges": t.exchanges,
+                  "host_exchanges": len(t.hosts), "collectives": len(t.collectives)}
+    same = {k: bit_equal(got, o) and bit_equal(g_states, st)
+            for k, (o, st) in runs.items() if k != "graph"}
+    print(f"{what}: graph vs {' and '.join(same)} over {n} blocks, outputs {len(got[0])} keys "
+          f"and exported state bit-equal: {same}; launches {launches} (expected {n} each); a "
+          f"replay runs {per_replay}", flush=True)
+    if not all(same.values()) or any(v != launches["graph"] for v in launches.values()) \
+            or not launches["graph"] or any(v != n for v in launches["graph"].values()) \
+            or not per_replay["exchanges"]:
+        fail(f"{what}: the graphs differ from the eager step or missed a launch")
+    if per_replay["host_exchanges"] != (0 if nccl else per_replay["exchanges"]):
+        fail(f"{what}: a replay makes {per_replay['host_exchanges']} host exchanges")
+    gx = rxs["graph"]
+    st, many = gx.step_many_u8(gx.init_state(), blocks[:4])
+    burst = [{k: v.cpu().numpy() for k, v in o.items()} for o in gx.unstack_outputs(many, 4)]
+    same = bit_equal(burst, got[:4]) and bit_equal([gx.export_state(st)], g_states[3:4])
+    print(f"{what}: step_many_u8 k=4 vs 4 graph steps bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{what}: the burst graphs differ from 4 graph steps")
+    err = sites_vs_plain(gx, what)["err"]
+    if nccl and err != 0:
+        fail(f"{what}: a per-shard mix_cascade site is {err:.3e} from its plain version")
+    order = ("eager", "graph", "gloo", "gloo", "graph", "eager") if nccl else \
+        ("eager", "graph", "graph", "eager")
+    turns = step_turns(rxs, "u8", blocks, 20, order)
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    prof = {k: step_rows(r, "u8", blocks, lockstep=True) for k, r in rxs.items()}
+    kinds = {k: row_kinds(p["rows"]) for k, p in prof.items()}
+    mem = {"eager": peak_mib(lambda: make(False), "u8", blocks), "graph": peak_mib(make, "u8", blocks)}
+    if nccl:
+        mem["gloo"] = peak_mib(lambda: make(transport="staged"), "u8", blocks)
+    idle = {k: 1.0 - prof[k]["device_us"] / 1e3 / ms[k] for k in ms}
+    for k in rxs:
+        print(f"{what} {k}: {ms[k]:.4f} ms/step (medians in turns {turns[k]}); profiled: "
+              f"{prof[k]['wall_ms']:.4f} ms/step, device {prof[k]['device_us']:.1f} us over "
+              f"{kinds[k]['rows']:g} CUDA rows, idle share {idle[k]:.3f}; rows {kinds[k]}; "
+              f"wrapper launches per step {prof[k]['launched']}; peak device memory "
+              f"{mem[k]:.1f} MiB", flush=True)
+    per_step = sum(prof["graph"]["launched"].values())
+    if any(kinds[k]["mix_cascade"] != kinds["graph"]["mix_cascade"] for k in kinds) \
+            or kinds["graph"]["mix_cascade"] != per_step or per_step != len(mesh.rows()):
+        fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade rows, "
+             f"the other steps {[kinds[k]['mix_cascade'] for k in kinds]}, the wrappers "
+             f"count {per_step:g}")
+    if nccl and (kinds["graph"]["nccl"] != per_replay["collectives"] or kinds["gloo"]["nccl"]):
+        fail(f"{what}: a replay runs {kinds['graph']['nccl']:g} NCCL rows for "
+             f"{per_replay['collectives']} collectives (the gloo graphs "
+             f"{kinds['gloo']['nccl']:g})")
+    return {"block": block, "err": err, "ms": ms, "turns": turns, "idle": idle,
+            "mem": mem, "exchange": exchange["graph"],
+            "kinds": kinds, **per_replay,
+            "device_us": {k: p["device_us"] for k, p in prof.items()},
+            "profiled_ms": {k: p["wall_ms"] for k, p in prof.items()}}
 
 
 def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False) -> list[dict]:
@@ -1966,15 +2027,20 @@ def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False) -> li
 
 def capture_failure_procs_child(argv: list[str]) -> int:
     """``chip_smoke.py --capture-failure-procs COORD PID``: a global 2x1
-    flagship mesh over two processes on the card, process 0's step reading
-    a device value on the host inside a phase: its capture fails and ends
-    it non-zero; process 1's next exchange then finds its peer gone, which
-    ends it non-zero too."""
+    flagship mesh over two processes (on the card, or each on its own card
+    when the caller hides the others), process 0's step reading a device
+    value on the host inside a phase: its capture fails and ends it
+    non-zero; process 1's next exchange then finds its peer gone, which
+    ends it non-zero too: its gloo call raises, or its replay's NCCL
+    kernels wait until ``multihost.TIMEOUT_S`` (30 s here) and the NCCL
+    group is aborted."""
     from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
 
+    multihost.TIMEOUT_S = 30
     mesh, plan = proc_mesh(argv[0], int(argv[1]), 1)
     try:  # the process group is left as the CLI leaves it
         rx = ShardedReceiver(plan, mesh, LIVE_BLOCK)
+        print(f"exchange {rx.exchange}", flush=True)
         if mesh.rank == 0:
             gather = rx._gather_time
 
@@ -1993,6 +2059,37 @@ def capture_failure_procs_child(argv: list[str]) -> int:
         multihost.shutdown()
     print("stepped: the capture did not fail")
     return 0
+
+
+def phase_capture_failure_procs(card: str, distinct: bool = False) -> float:
+    """21 (end). No fallback across processes: process 0's capture fails,
+    and process 1 then ends on its first exchange without its peer; both
+    processes on the card (gloo), or (``distinct``) each on its own card
+    (NCCL: process 1's replay waits until the deadline).  The seconds both
+    took."""
+    coord = f"127.0.0.1:{free_port()}"
+    envs = [{"CUDA_VISIBLE_DEVICES": str(i)} for i in (0, 1)] if distinct else None
+    t0 = time.perf_counter()
+    res = processes([["--capture-failure-procs", coord, i] for i in (0, 1)], timeout=240,
+                    envs=envs)
+    secs = time.perf_counter() - t0
+    (rc0, so0, se0), (rc1, so1, se1) = res
+    exchange = "nccl" if distinct else "gloo"
+    print(f"a host read inside a phase of process 0 of a global 2x1 mesh "
+          f"({'a card a process' if distinct else 'one card'}, {exchange}): exit codes "
+          f"{[rc for rc, _, _ in res]} after {secs:.1f} s; the errors:")
+    for i, (_, _, se) in enumerate(res):
+        errs = [line for line in se.splitlines() if "Error" in line or "error" in line]
+        print(f"  process {i}: {[e[:200] for e in errs[-4:]]}")
+    tail = [line[:200] for line in se0.strip().splitlines()
+            if not line.lstrip().startswith("frame #")][-30:]
+    print("  process 0's last lines of stderr (no C++ frames):\n    " + "\n    ".join(tail))
+    peer = "NCCL group was aborted" if distinct else "communicate"
+    if rc0 <= 0 or "capture" not in se0 or rc1 <= 0 or peer not in se1 \
+            or "stepped" in so0 + so1 or f"exchange {exchange}" not in so0 + so1:
+        fail(f"a capture that cannot hold the step across processes ({exchange}) did not end "
+             f"both processes")
+    return secs
 
 
 def phase_proc_cli(dev, card: str) -> dict:
@@ -2026,13 +2123,19 @@ def phase_proc_cli(dev, card: str) -> dict:
             mh = [s["multihost"] for s in sums]
             print(f"bench --coordinator --partition {partition}, 2 processes on one card, flagship "
                   f"block {block}: mode {[s['mode'] for s in sums]}, cuda_graphs "
-                  f"{[s['cuda_graphs'] for s in sums]}, Msamples/s per process "
+                  f"{[s['cuda_graphs'] for s in sums]}, exchange "
+                  f"{[s.get('exchange') for s in sums]}, Msamples/s per process "
                   f"{mh[0]['sps_per_host_msps']}, sps_1_full_plan "
                   f"{[m['sps_1_full_plan'] for m in mh]} Msamples/s, eff(2) {mh[0]['eff']} (ceiling {mh[0]['eff_ceiling']}), realtime "
                   f"{[s['realtime_factor'] for s in sums]} {card}")
             if not all(s["cuda_graphs"] for s in sums) or any(s["block_samples"] != block
                                                                for s in sums):
                 fail(f"bench --coordinator {partition}: not on graphs or not at block {block}")
+            # two processes on one card: NCCL refuses them, the exchanges are gloo's
+            want = [None, None] if partition == "groups" else ["gloo", "gloo"]
+            if [s.get("exchange") for s in sums] != want:
+                fail(f"bench --coordinator {partition}: exchange "
+                     f"{[s.get('exchange') for s in sums]} on one card")
             out["bench"][(partition, block)] = mh[0]
 
     # run over rtl_tcp: each process its own server of the same bytes, its
@@ -2070,14 +2173,16 @@ def phase_proc_cli(dev, card: str) -> dict:
         (launches,) = json.loads(so.strip().splitlines()[-1])["launches"]
         print(f"run --coordinator --partition global --mesh 2x1 over rtl_tcp, paced, process {i} "
               f"of 2 on one card: {summary['blocks']} blocks, cuda_graphs "
-              f"{summary['cuda_graphs']}, ring {summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
+              f"{summary['cuda_graphs']}, exchange {summary.get('exchange')}, ring "
+              f"{summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
               f"launches {launches} (expected {n} each); block_latency_ms p50 "
               f"{summary['block_latency_ms']['p50']} {card}")
         if summary["blocks"] != n or summary["ring"]["dropped"] \
                 or summary["rtl_tcp"]["reconnects"] or not summary["cuda_graphs"] \
+                or summary.get("exchange") != "gloo" \
                 or any(v != n for v in launches.values()) or not launches:
             fail(f"run --coordinator --partition global: process {i} dropped blocks, stepped "
-                 f"eagerly or missed a launch")
+                 f"eagerly, did not exchange through gloo or missed a launch")
         got: dict[str, list[np.ndarray]] = {t: [] for t in watch[i]}
         for f in frames[i]:
             topic = f[0].decode()
@@ -2096,24 +2201,7 @@ def phase_proc_cli(dev, card: str) -> dict:
         runs.append(summary)
     out["run"] = runs
 
-    # no fallback across processes: process 0's capture fails, and process
-    # 1 then ends on its first exchange without its peer
-    coord = f"127.0.0.1:{free_port()}"
-    t0 = time.perf_counter()
-    res = processes([["--capture-failure-procs", coord, i] for i in (0, 1)], timeout=240)
-    secs = time.perf_counter() - t0
-    (rc0, so0, se0), (rc1, so1, se1) = res
-    print(f"a host read inside a phase of process 0 of a global 2x1 mesh: exit codes "
-          f"{[rc for rc, _, _ in res]} after {secs:.1f} s; the errors:")
-    for i, (_, _, se) in enumerate(res):
-        errs = [line for line in se.splitlines() if "Error" in line or "error" in line]
-        print(f"  process {i}: {[e[:200] for e in errs[-4:]]}")
-    tail = [line[:200] for line in se0.strip().splitlines()
-            if not line.lstrip().startswith("frame #")][-30:]
-    print("  process 0's last lines of stderr (no C++ frames):\n    " + "\n    ".join(tail))
-    if rc0 <= 0 or "capture" not in se0 or rc1 <= 0 or "communicate" not in se1 \
-            or "stepped" in so0 + so1:
-        fail("a capture that cannot hold the step across processes did not end both processes")
+    out["capture_failure_s"] = phase_capture_failure_procs(card)
     return out
 
 
@@ -2323,8 +2411,8 @@ def main() -> None:
 
     # ---- 21. the mesh step across processes as CUDA graphs ----
     phase_proc_graphs(card)
-    if torch.cuda.device_count() >= 4:
-        phase_proc_graphs(card, n_local=2, distinct=True)
+    if torch.cuda.device_count() >= 2:  # distinct cards: NCCL inside the graphs
+        procs_on_cards(card)
     phase_proc_cli(dev, card)
 
     kernels = [
@@ -2399,40 +2487,84 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
-def four_cards() -> None:
-    """``chip_smoke.py --four-cards``: on a machine of four cards, only the
-    paths that need them: phase 20's meshes over four distinct cards and
-    phase 21's global meshes over two processes on distinct cards (2x1 of
-    one card each, 4x1 of two cards each)."""
-    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
-        fail("--four-cards needs four CUDA devices")
+def cards_header(n: int) -> tuple[list[str], str]:
+    """Fails unless there are ``n`` CUDA devices; the ``nvidia-smi`` lines
+    (name, power limit) of the cards, and a tag for the printed lines."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < n:
+        fail(f"this mode needs {n} CUDA devices")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()
-    card = f"[{smi[0]} x{len(smi)}]"
     print("\n".join(smi))
     from sdrreceiver_tpu_torch.cuda import build
 
     build.library()
-    dev = torch.device(DEVICE)
-    phase_mesh_graphs(dev, card, 20, layouts=mesh_layouts(dev)[1:])
+    return smi, f"[{smi[0]} x{len(smi)}]"
+
+
+def procs_on_cards(card: str) -> None:
+    """Phase 21's paths across processes that need distinct cards: the
+    global 2x1 with a card a process, the global 4x1 with two cards a
+    process where there are four, both exchanging through NCCL inside the
+    graphs, and the capture failure in one of two processes on distinct
+    cards."""
     phase_proc_graphs(card, n_local=1, distinct=True)
-    phase_proc_graphs(card, n_local=2, distinct=True)
+    if torch.cuda.device_count() >= 4:
+        phase_proc_graphs(card, n_local=2, distinct=True)
+    phase_capture_failure_procs(card, distinct=True)
+
+
+def last_lines(smi: list[str]) -> None:
     print(smi[0])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
 
 
+def four_cards() -> None:
+    """``chip_smoke.py --four-cards``: on a machine of four cards, only the
+    paths that need them: phase 20's meshes over four distinct cards and
+    :func:`procs_on_cards` (``chip_smoke.py --procs-on-cards`` alone, on a
+    machine of two cards or more)."""
+    smi, card = cards_header(4)
+    phase_mesh_graphs(torch.device(DEVICE), card, 20, layouts=mesh_layouts(torch.device(DEVICE))[1:])
+    procs_on_cards(card)
+    last_lines(smi)
+
+
 if __name__ == "__main__":
-    modes = {"--cli": cli_child, "--procgraphs": proc_graphs_child,
+    modes = {"--procgraphs": proc_graphs_child,
              "--capture-failure-procs": capture_failure_procs_child}
+    if os.environ.get("SMOKE_DUMP_S"):  # a child of processes(): its stacks before a kill
+        import faulthandler
+
+        faulthandler.dump_traceback_later(float(os.environ["SMOKE_DUMP_S"]), exit=False)
+    if sys.argv[1:2] == ["--cli"]:
+        sys.exit(cli_child(sys.argv[2:]))
     if sys.argv[1:2] and sys.argv[1] in modes:
-        sys.exit(modes[sys.argv[1]](sys.argv[2:]))
+        # a mesh child ends here without the interpreter's teardown: it has
+        # left its process group, and what torch still holds can only delay it
+        try:
+            rc = modes[sys.argv[1]](sys.argv[2:])
+        except SystemExit as e:
+            rc = e.code if isinstance(e.code, int) else 1
+        except BaseException:
+            import traceback
+
+            traceback.print_exc()
+            rc = 1
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(rc)
     if sys.argv[1:2] == ["--capture-failure"]:
         sys.exit(capture_failure_child())
     if sys.argv[1:2] == ["--four-cards"]:
         four_cards()
+        sys.exit(0)
+    if sys.argv[1:2] == ["--procs-on-cards"]:
+        smi, card = cards_header(2)
+        procs_on_cards(card)
+        last_lines(smi)
         sys.exit(0)
     main()

@@ -21,10 +21,13 @@ JSON:
 ``--device`` picks the torch device (default ``cuda``; asking for it
 without a card is an error, never a fall back to the CPU).  On the card the
 receiver replays one CUDA graph per step, and a mesh one graph per phase
-and card, its gloo exchanges between the phases where it spans processes
-(the receivers' default).  ``--plain`` runs the kernels' plain PyTorch versions,
-eagerly (``use_kernels=False, cuda_graphs=False``).  Each command's JSON
-summary says whether graphs ran (``"cuda_graphs"``).
+and card where it spans processes too (the receivers' default): its
+exchanges NCCL collectives inside the graphs where every process holds
+cards of its own, else gloo calls between the phases.  ``--plain`` runs the
+kernels' plain PyTorch versions, eagerly (``use_kernels=False,
+cuda_graphs=False``).  Each command's JSON summary says whether graphs ran
+(``"cuda_graphs"``) and, under ``--partition global``, which library
+exchanged (``"exchange"``: ``"nccl"`` or ``"gloo"``).
 ``--mesh TxC`` runs the sharded receiver over T*C local devices (the cards,
 repeated when T*C exceeds their count; ``--device cpu``: the CPU T*C
 times).  ``--coordinator HOST:PORT`` with ``--num-processes`` and
@@ -359,6 +362,8 @@ def cmd_process_file(args) -> int:
     out = metrics.summary()
     out["device"] = str(rx.device)
     out["cuda_graphs"] = rx._graphs is not None
+    if getattr(rx, "exchange", None):
+        out["exchange"] = rx.exchange
     if args._multihost:
         out["multihost"] = args._multihost
     out["outputs_written"] = sorted(written)
@@ -527,6 +532,8 @@ def cmd_run(args) -> int:
         summary.update(source_stats())
     summary["device"] = str(rx.device)
     summary["cuda_graphs"] = rx._graphs is not None
+    if getattr(rx, "exchange", None):
+        summary["exchange"] = rx.exchange
     if args._multihost:
         summary["multihost"] = args._multihost
     print(json.dumps(summary))
@@ -589,6 +596,7 @@ def cmd_bench(args) -> int:
         "blocks": args.blocks,
         "mode": "sharded" if args.mesh else ("kernels" if rx.use_kernels else "plain"),
         "cuda_graphs": rx._graphs is not None,
+        **({"exchange": rx.exchange} if getattr(rx, "exchange", None) else {}),
         "msamples_per_second": round(sps / 1e6, 2),
         "realtime_factor": round(sps / plan.fs, 1),
         "cost_model": plan_cost_model(plan, rx.block),

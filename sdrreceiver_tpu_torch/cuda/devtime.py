@@ -22,10 +22,14 @@ and 4x1, 2x2 and 1x4 meshes of the card, eager and with a graph per phase
 (in turns): wall time, device time, CUDA rows per step, the device's idle
 share, and the rows each adds over the one-device step (eager, or the
 graph for the graph cases).  ``--steps --procs`` profiles a ``--partition
-global`` mesh 2x1 over two processes of this script on the card (gloo
-between them), eager and with graphs per phase in turns, at both blocks:
-process 0's wall time, device time, CUDA rows and idle share, and the
-exchanges and graphs one replay makes.
+global`` mesh 2x1 over two processes of this script, eager and with graphs
+per phase in turns, at both blocks: process 0's wall time, device time,
+CUDA rows and idle share, the transport of its exchanges, and the graphs,
+transfers, host exchanges and NCCL rows one replay makes.  With one card
+both processes share it and exchange through gloo (the host's part of
+each exchange timed too); with two or more each takes its own card and
+exchanges through NCCL inside the graphs, beside the same graphs with
+their exchanges staged through gloo.
 
 Device time is ``torch.profiler``'s: the CUDA rows (kernels and memsets) of
 ``key_averages`` over ``calls`` back-to-back wrapper calls after a warm-up,
@@ -317,19 +321,24 @@ def step_profiles(calls: int = 10, seed: int = 0) -> list[dict]:
 
 def proc_step_profiles(calls: int = 10, seed: int = 0, timeout: float = 900) -> list[dict]:
     """The ``--steps`` cases of a ``--partition global`` mesh 2x1 over two
-    processes of this script on the card (:func:`proc_child`): process 0's
-    profiles, its last line of output."""
+    processes of this script (:func:`proc_child`), both on the card, or
+    each on its own card where there are two: process 0's profiles, its
+    last line of output."""
     import socket
+
+    import torch
 
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         coord = f"127.0.0.1:{sk.getsockname()[1]}"
     root = pathlib.Path(__file__).resolve().parents[2]
-    env = dict(os.environ, PYTHONPATH=str(root))
+    distinct = torch.cuda.device_count() >= 2
+    envs = [dict(os.environ, PYTHONPATH=str(root),
+                 **({"CUDA_VISIBLE_DEVICES": str(i)} if distinct else {})) for i in (0, 1)]
     procs = [subprocess.Popen([sys.executable, str(pathlib.Path(__file__).resolve()),
                                "--proc-child", coord, str(i), str(calls), str(seed)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
-             for i in (0, 1)]
+             for i, env in zip((0, 1), envs)]
     try:
         res = [p.communicate(timeout=timeout) for p in procs]
     finally:
@@ -345,39 +354,60 @@ def proc_step_profiles(calls: int = 10, seed: int = 0, timeout: float = 900) -> 
 
 def proc_child(coord: str, pid: int, calls: int, seed: int) -> None:
     """One of :func:`proc_step_profiles`' two processes: the flagship on
-    the global mesh 2x1 (this process's shard on the card) at 1,536,000
-    and 384,000, eager and with graphs per phase in turns (eager, graph,
-    graph, eager), every profile taken in both processes at once; prints
-    the cases, with the exchanges and graphs one replay makes."""
-    import numpy as np
-    import torch
-
+    the global mesh 2x1 (this process's shard on its first visible card)
+    at 1,536,000 and 384,000, eager and with graphs per phase in turns
+    (eager, graph, graph, eager; where the exchanges are NCCL's, the graphs
+    with gloo exchanges too: eager, graph, gloo graph, gloo graph, graph,
+    eager), every profile taken in both processes at once; prints the
+    cases, with each one's transport and what one replay makes, and for
+    the gloo paths the host's time at the exchanges."""
     from sdrreceiver_tpu_torch import flagship
-    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+    from sdrreceiver_tpu_torch.dist import multihost
     from sdrreceiver_tpu_torch.graph.plan import build_plan
 
     multihost.initialize(coord, 2, pid)
     try:
         mesh = multihost.global_mesh(1, ["cuda:0"])
         plan = build_plan(flagship.benchmark_config())
-        out = []
-        for block in (1_536_000, 384_000):
-            raw = torch.tensor(np.random.default_rng(seed).integers(
-                100, 156, (2, 2 * block), dtype=np.uint8), device=mesh.home)
-            rxs = {"": ShardedReceiver(plan, mesh, block, cuda_graphs=False),
-                   ", graph": ShardedReceiver(plan, mesh, block)}
-            cases = _in_turns(rxs, ["", ", graph", ", graph", ""],
-                              f"flagship block {block} global mesh 2x1, process {pid} of 2",
-                              raw, calls, lockstep=True)
-            (entry,) = rxs[", graph"]._graphs._entries.values()
-            cases[1].update(graphs=0 if entry.graph is None else entry.graph.graphs, exchanges=len(entry.body.transfers.hosts),
-                            transfers=len(entry.body.transfers.bufs))
-            for case, name in zip(cases, rxs):
-                case["exchange_ms"] = [exchange_ms(rxs[name], raw) for _ in range(2)]
-            out += cases
+        # each block's receivers are gone before the process group is left:
+        # a graph that captured NCCL collectives holds their communicator
+        out = [c for block in (1_536_000, 384_000)
+               for c in _proc_cases(mesh, plan, block, calls, seed)]
         print(json.dumps({"steps": out}))
     finally:
         multihost.shutdown()
+
+
+def _proc_cases(mesh, plan, block: int, calls: int, seed: int) -> list[dict]:
+    """:func:`proc_child`'s cases at one block."""
+    import numpy as np
+    import torch
+
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+
+    raw = torch.tensor(np.random.default_rng(seed).integers(
+        100, 156, (2, 2 * block), dtype=np.uint8), device=mesh.home)
+    rxs = {"": ShardedReceiver(plan, mesh, block, cuda_graphs=False),
+           ", graph": ShardedReceiver(plan, mesh, block)}
+    order = ["", ", graph", ", graph", ""]
+    if rxs[", graph"].exchange == "nccl":
+        rxs[", graph, gloo"] = ShardedReceiver(plan, mesh, block)
+        rxs[", graph, gloo"]._span = multihost.ProcessSpan(mesh, transport="staged")
+        order = ["", ", graph", ", graph, gloo", ", graph, gloo", ", graph", ""]
+    cases = _in_turns(rxs, order,
+                      f"flagship block {block} global mesh 2x1, process {mesh.rank} of 2",
+                      raw, calls, lockstep=True)
+    for case, rx in zip(cases, rxs.values()):
+        case["exchange"] = rx.exchange
+        case["nccl_rows"] = sum(n for k, (_, n) in case["rows"].items() if "nccl" in k.lower())
+        if rx._graphs is not None:
+            (entry,) = rx._graphs._entries.values()
+            t = entry.body.transfers
+            case.update(graphs=entry.graph.graphs, transfers=len(t.bufs),
+                        exchanges=t.exchanges, host_exchanges=len(t.hosts))
+        if rx._span.transport == "staged":
+            case["exchange_ms"] = [exchange_ms(rx, raw) for _ in range(2)]
+    return cases
 
 
 def exchange_ms(rx, raw, steps: int = 20) -> dict:
@@ -386,7 +416,7 @@ def exchange_ms(rx, raw, steps: int = 20) -> dict:
     (host clock, every process stepping at once), the wall ms per step and,
     per exchange of a step in call order, its kind, the ms the host waits
     for the cards before it (the graphs' ``_Exchange.wait``; the eager
-    step's copies wait inside ``ProcessSpan.staged``, not counted) and the
+    step's copies wait inside ``ProcessSpan.eager``, not counted) and the
     ms in its gloo call."""
     import time
 
@@ -547,12 +577,19 @@ def main(argv=None) -> None:
     if args.proc_child:
         coord, pid, calls, seed = args.proc_child
         proc_child(coord, int(pid), int(calls), int(seed))
-        return
+        # no interpreter teardown: the process group is left, and what torch
+        # still holds of NCCL can only delay the end
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(0)
     if args.steps:
         steps = proc_step_profiles() if args.procs else step_profiles()
         for c in steps:
-            per_replay = (f", {c['graphs']} graphs and {c['exchanges']} exchanges a replay"
-                          if "exchanges" in c else "")
+            per_replay = (f"; {c['exchange']} exchanges, {c['nccl_rows']:g} NCCL rows a step"
+                          if "exchange" in c else "")
+            if "graphs" in c:
+                per_replay += (f", {c['graphs']} graphs, {c['transfers']} transfers and "
+                               f"{c['host_exchanges']} host exchanges of {c['exchanges']} a replay")
             print(f"{c['case']:58s} wall {c['wall_ms']:8.3f} ms (profiled "
                   f"{c['profiled_ms']:8.3f}), device {c['device_us']:8.1f} us over "
                   f"{c['rows_per_step']:.0f} CUDA rows (mix_cascade {c['mix_cascade_us']:.1f} "

@@ -20,7 +20,8 @@ caller or are built once per device.  Where a mesh's shards span
 processes, ``span`` (``dist.multihost.ProcessSpan``) carries the transfers
 that cross a process boundary, each one call of its ``exchange`` hook
 (which ``dist.meshgraph`` swaps, as it swaps ``move``): the halo into this
-process's first shard, the last shard's cascade history, the gathers;
+process's first shard, the last shard's cascade history, the gathers,
+each an NCCL collective or a gloo call (``ProcessSpan.transport``);
 ``span=None`` means this process computes every shard.
 
   * FIR/cascade halos: right shift of each shard's tail

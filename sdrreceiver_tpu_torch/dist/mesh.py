@@ -11,7 +11,8 @@ repeat a device: ``[cuda:0] * 4`` is a 4x1 mesh on one card, and
 virtual CPU devices.  Inside one process the collectives between shards are
 tensor copies between their devices; a mesh whose devices belong to several
 processes (``dist.multihost.global_mesh``) records each entry's owning
-process, and the shards of other processes are computed there.
+process and physical identity, and the shards of other processes are
+computed there.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ CHAN_AXIS = "chan"
 class Mesh:
     """A ``(time, chan)`` grid of devices.  ``devices[i][j]`` is the device
     of time shard ``i``, channel range ``j``; ``ranks[i][j]`` the process
-    that owns it (all 0 in one process); ``rank`` this process."""
+    that owns it (all 0 in one process); ``rank`` this process; ``ids[i][j]``
+    the physical device (a card's UUID; None for the CPU, or where not
+    known): ``"cuda:0"`` names another card in each process that sees its
+    own cards."""
 
-    def __init__(self, devices, ranks=None, rank: int = 0):
+    def __init__(self, devices, ranks=None, rank: int = 0, ids=None):
         self.devices = [[torch.device(d) for d in row] for row in devices]
         n_time, n_chan = len(self.devices), len(self.devices[0])
         if any(len(row) != n_chan for row in self.devices):
@@ -39,6 +43,8 @@ class Mesh:
             else [[rank] * n_chan for _ in range(n_time)]
         )
         self.rank = rank
+        self.ids = ([list(r) for r in ids] if ids is not None
+                    else [[None] * n_chan for _ in range(n_time)])
         self.shape = {TIME_AXIS: n_time, CHAN_AXIS: n_chan}
         rows = self.rows()
         if not rows or rows != list(range(rows[0], rows[-1] + 1)):

@@ -17,22 +17,33 @@ cards is cut where data crosses devices:
 * an **exchange** is one call of ``ProcessSpan.exchange`` where the mesh
   spans processes (the halo into this process's first shard, the last
   shard's cascade history, the gathers of the DC totals, the input tail
-  and each group's outputs).  Its data goes through static host buffers
-  (pinned on the card) and a static destination on the card, made on the
-  body's first run: the phase before it ends by copying the source into
-  the send buffer, the host waits for the cards of its source and its
-  destination and runs the gloo call on the host buffers, and the phase
-  after it begins by copying the receive buffer to the destination;
+  and each group's outputs).  Its buffers are made on the body's first run.
+  Where the processes hold distinct cards (``ProcessSpan.transport ==
+  "collective"``) it is an NCCL collective on static buffers on the home
+  card, captured inside the home card's graph of the phase like any other
+  op: no boundary.  A source on the process's other card reaches the home
+  card through a transfer first (the NCCL group binds one card a process).
+  Otherwise (staged: two processes sharing a card) its data goes through
+  static pinned host buffers and a static destination on the card: the
+  phase before it ends by copying the source into the send buffer, the
+  host waits for the cards of its source and its destination and runs the
+  gloo call on the host buffers, and the phase after it begins by copying
+  the receive buffer to the destination;
 * a **phase** is the compute between two transfers or exchanges.  Each
   card that computes in it has one graph holding the work of all its
   shards.
 
 Replaying an entry runs, phase by phase, the graphs of the cards that
-compute in it and then the transfer's copies or the exchange's host part.
-Each card's stream keeps its own order, and torch's copy between two cards
-waits on both cards' streams, so within a process nothing waits on the
-host; only an exchange does, because gloo reads and writes host memory.  A
-mesh on one card (``[cuda:0] * 4``) takes the same path, one graph per
+compute in it and then the transfer's copies or the staged exchange's host
+part.  Each card's stream keeps its own order, and torch's copy between two
+cards waits on both cards' streams, so within a process nothing waits on
+the host; only a staged exchange does, because gloo reads and writes host
+memory.  A collective's NCCL kernels wait on the peer's on the card, so a
+replay of an entry with collectives makes no host round trip between its
+phases; it ends with the host waiting for every card's stream, bounded by
+``multihost.TIMEOUT_S`` (``ProcessSpan.wait``: an NCCL kernel whose peer is
+gone would wait forever, and torch's watchdog does not see graph replays).
+A mesh on one card (``[cuda:0] * 4``) takes the same path, one graph per
 phase, so one card runs the code that four run.
 
 Everything else is :class:`~..graph.cudagraph.StepGraphs`': one set of
@@ -46,12 +57,14 @@ capture raises; no phase falls back to the eager step.
 
 Across processes the warm-up runs really exchange data, so every process
 runs the same entries in the same order, each with its ``WARMUP_STEPS``
-warm-up runs, in lockstep (gloo pairs the calls by order; the receivers
-of a global mesh step the same blocks).  The capture exchanges nothing:
-it records the copies into and out of the host buffers, and no data is
-real yet.  Each replay then makes every exchange once.  A peer that died
-makes the gloo call raise (at the latest after ``multihost.TIMEOUT_S``),
-and the step with it.
+warm-up runs, in lockstep (gloo pairs the calls by order on the host, NCCL
+by launch order on the card; the receivers of a global mesh step the same
+blocks).  The warm-ups also make the NCCL communicators, before any
+capture opens.  The capture exchanges nothing: it records the copies into
+and out of the host buffers, or the collectives, and no data is real yet.
+Each replay then makes every exchange once.  A peer that died makes the
+gloo call raise (at the latest after ``multihost.TIMEOUT_S``), or the wait
+at the replay's end abort the NCCL group and raise, and the step with it.
 
 Several captures are open at once on one thread (one per card), and one
 is ended and instantiated while the others run, so they capture in
@@ -198,20 +211,22 @@ class _Recorder(TorchDispatchMode):
 
 
 class _Exchange:
-    """One exchange across processes of an entry's body: its host buffers
-    and its destination on ``device``, made once; called, the host's part
-    of it (wait for the cards of its source and destination, then the gloo
-    call on the host buffers)."""
+    """One exchange across processes of an entry's body: its buffers
+    (``ProcessSpan.buffers``), made once.  Staged, also its destination on
+    ``device``; called, the host's part of it (wait for the cards of its
+    source and destination, then the gloo call on the host buffers)."""
 
     def __init__(self, span, kind: str, v: torch.Tensor, device):
         self.span, self.kind = span, kind
-        self.send, self.recv = span.host_buffers(kind, v)
-        self.dst = torch.empty(self.recv.shape, dtype=v.dtype, device=device)
-        self.cards = {d for d in (v.device, self.dst.device) if d.type == "cuda"}
+        self.send, self.recv = span.buffers(kind, v)
+        self.device = torch.device(device)
+        if span.transport == "staged":
+            self.dst = torch.empty(self.recv.shape, dtype=v.dtype, device=device)
+            self.cards = {d for d in (v.device, self.dst.device) if d.type == "cuda"}
 
     def fits(self, kind: str, v: torch.Tensor, device) -> bool:
         return (kind == self.kind and v.shape == self.send.shape and v.dtype == self.send.dtype
-                and torch.device(device) == self.dst.device)
+                and torch.device(device) == self.device)
 
     def wait(self) -> None:
         """Wait for the cards: the send buffer is written, the receive
@@ -230,14 +245,17 @@ class _Transfers:
     static buffers, the k-th exchange goes through the k-th
     :class:`_Exchange` (both made on the first run), so every run moves the
     same data between the same buffers.  While ``recorder`` captures, each
-    call is a phase boundary: the copies of a transfer, and the host part
-    of an exchange, are recorded for the replays instead of made."""
+    transfer, and each staged exchange, is a phase boundary: the copies of
+    a transfer, and the host part of an exchange, are recorded for the
+    replays instead of made.  A collective exchange is no boundary: its
+    collective is captured into the home card's graph of the phase."""
 
     def __init__(self, span=None):
         self.span = span
         self.bufs: list[list[torch.Tensor]] = []
         self.calls = 0
-        self.hosts: list[_Exchange] = []
+        self.hosts: list[_Exchange] = []  # staged: a host part between phases each
+        self.collectives: list[_Exchange] = []  # inside the phase graphs
         self.exchanges = 0
         self.recorder: _Recorder | None = None
 
@@ -257,16 +275,28 @@ class _Transfers:
         return list(dsts)
 
     def exchange(self, kind: str, v: torch.Tensor, device) -> torch.Tensor:
-        """``ProcessSpan.exchange`` through this body's static buffers: the
-        source copied into the send buffer at the end of a phase, the host
-        part between the phases, the receive buffer copied to the static
-        destination at the start of the next phase."""
-        if self.exchanges == len(self.hosts):
-            self.hosts.append(_Exchange(self.span, kind, v, device))
-        ex = self.hosts[self.exchanges]
+        """``ProcessSpan.exchange`` through this body's static buffers.
+        Collective: ``v`` reaches the home card (a transfer where it lies on
+        another card), is copied into the send buffer, the collective runs
+        (captured into the phase's graph), and the receive buffer is the
+        result (a transfer to ``device`` where that is another card).
+        Staged: the source copied into the send buffer at the end of a
+        phase, the host part between the phases, the receive buffer copied
+        to the static destination at the start of the next phase."""
+        span = self.span
+        made = self.collectives if span.transport == "collective" else self.hosts
+        if self.exchanges == len(made):
+            made.append(_Exchange(span, kind, v, device))
+        ex = made[self.exchanges]
         self.exchanges += 1
         if not ex.fits(kind, v, device):
             raise RuntimeError("an exchange of the mesh step changed between runs")
+        if span.transport == "collective":
+            if v.device != span.home:
+                (v,) = self([v], [span.home])
+            ex.send.copy_(v)
+            span.communicate(kind, ex.send, ex.recv)
+            return ex.recv if ex.device == span.home else self([ex.recv], [ex.device])[0]
         ex.send.copy_(v, non_blocking=True)
         if self.recorder is not None:
             self.recorder.boundary(ex)
@@ -360,16 +390,20 @@ class MeshGraphs(StepGraphs):
         rec.empty.clear()
         launches = recorded()
         restore()
-        return _Entry(inp, body, _Program(rec.steps), outputs, launches)
+        return _Entry(inp, body, _Program(rec.steps, cards, rx._span), outputs, launches)
 
 
 class _Program:
     """A captured entry: per phase the graphs of the cards that compute in
-    it, then what ends it: the copies of a transfer, the host part of an
-    exchange, or nothing after the last phase."""
+    it, then what ends it: the copies of a transfer, the host part of a
+    staged exchange, or nothing after the last phase.  Where the phases
+    hold NCCL collectives (``span``), a replay ends with the host waiting,
+    bounded, for every card's stream (``ProcessSpan.wait``)."""
 
-    def __init__(self, steps: list[tuple[list, object]]):
+    def __init__(self, steps: list[tuple[list, object]], cards=(), span=None):
         self.steps = steps
+        self.cards = list(cards) if span is not None and span.backend == "nccl" else []
+        self.span = span
 
     @property
     def graphs(self) -> int:
@@ -382,3 +416,8 @@ class _Program:
                 g.replay()
             if after is not None:
                 after()
+        if self.cards:
+            events = [torch.cuda.Event() for _ in self.cards]
+            for ev, d in zip(events, self.cards):
+                ev.record(torch.cuda.current_stream(d))
+            self.span.wait(events)

@@ -19,18 +19,29 @@ totals, the last shard's tail and the group outputs cross processes
 output.  Egress stays per process: :func:`egress_owner` gives each group's
 topics to one process.
 
-Transport: ``torch.distributed`` over gloo (TCP on the host network, the
-JAX package's DCN).  CUDA tensors are staged through pinned host buffers
-made once per exchange; the payloads are KB-scale halos and the
-per-block output gather.
+Transport: the process group is gloo (TCP on the host network, the JAX
+package's DCN).  A global mesh's exchanges take one of two transports, a
+topology fact every process derives alike from the gathered devices
+(:func:`exchange_backend`): where no physical card is held by two processes
+they are NCCL collectives on the card tensors themselves (the JAX package's
+device collectives inside its compiled step), captured inside the phase
+graphs (``dist.meshgraph``); otherwise (two processes on one card, which
+NCCL refuses, or CPU shards) gloo calls on pinned host buffers made once
+per exchange, the payloads KB-scale halos and the per-block output gather.
 :func:`initialize` joins the process group for both partitions.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import faulthandler
+import gc
 import os
+import sys
+import threading
+import time
 
 import numpy as np
 import torch
@@ -46,6 +57,8 @@ __all__ = [
     "host_subplan",
     "assignment_report",
     "global_mesh",
+    "exchange_backend",
+    "await_events",
     "ProcessSpan",
     "egress_owner",
     "global_report",
@@ -55,6 +68,16 @@ __all__ = [
 
 #: Seconds a collective waits for its peers before it fails.
 TIMEOUT_S = 300
+
+#: Seconds a process whose replay missed :data:`TIMEOUT_S` runs on before
+#: it ends itself (exit code 1)
+END_GRACE_S = 20
+
+#: Seconds :func:`shutdown` waits for the process group's teardown
+SHUTDOWN_S = 30
+
+#: The NCCL group of the exchanges, made once per process group
+_groups: dict[str, object] = {}
 
 
 def _dist():
@@ -86,10 +109,28 @@ def initialize(
 
 
 def shutdown() -> None:
-    """Leave the process group, if this process joined one."""
+    """Leave the process group, if this process joined one.  With an NCCL
+    group, the receivers dropped by then are collected first: a CUDA graph
+    that captured NCCL collectives holds its communicator, whose teardown
+    waits until the graph is gone (on the card, destroying the group with
+    live graphs never returned).  The teardown then runs on a thread of its
+    own, waited for at most :data:`SHUTDOWN_S`; past that it is left to the
+    process's end, with a word on stderr."""
     dist = _dist()
-    if dist.is_initialized():
+    nccl = _groups.pop("nccl", None) is not None
+    if not dist.is_initialized():
+        return
+    if not nccl:
         dist.destroy_process_group()
+        return
+    gc.collect()
+    done = threading.Thread(target=dist.destroy_process_group, daemon=True)
+    done.start()
+    done.join(SHUTDOWN_S)
+    if done.is_alive():
+        print(f"multihost: the process group's teardown did not end within {SHUTDOWN_S} s "
+              f"(an NCCL communicator still held by a CUDA graph); left to the process's end",
+              file=sys.stderr, flush=True)
 
 
 def distributed_subplan(
@@ -146,20 +187,33 @@ def host_subplan(plan: ReceiverPlan, assignment: dict[int, int], host: int) -> R
     return dataclasses.replace(plan, groups=groups)
 
 
+def card_id(device) -> str | None:
+    """The physical identity of ``device``: a card's UUID (the same card has
+    the same one in every process, whatever index it has there), None for
+    the CPU."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return str(torch.cuda.get_device_properties(index).uuid)
+
+
 def global_mesh(n_chan: int = 1, devices=None):
     """One ``(time, chan)`` mesh over EVERY process's devices, in process
     order: with N processes of D local devices, time = N*D/n_chan.  Each
     process passes its own ``devices`` (default: its cards); every process
     needs the same count, a multiple of ``n_chan``, so that each time row
-    lies on one process."""
+    lies on one process.  Each device's physical identity (:func:`card_id`)
+    is gathered with it, for :func:`exchange_backend`."""
     from .mesh import Mesh, local_devices
 
     devices = [torch.device(d) for d in (devices if devices is not None else local_devices())]
     pid, n = initialize()
-    per_proc = [[str(d) for d in devices]]
+    mine = [(str(d), card_id(d)) for d in devices]
+    per_proc = [mine]
     if n > 1:
         per_proc = [None] * n
-        _dist().all_gather_object(per_proc, [str(d) for d in devices])
+        _dist().all_gather_object(per_proc, mine)
     total = sum(len(p) for p in per_proc)
     if total % n_chan:
         raise ValueError(f"{total} global devices not divisible by n_chan={n_chan}")
@@ -170,8 +224,62 @@ def global_mesh(n_chan: int = 1, devices=None):
         )
     flat = [(r, d) for r, p in enumerate(per_proc) for d in p]
     rows = [flat[i:i + n_chan] for i in range(0, total, n_chan)]
-    return Mesh([[d for _, d in row] for row in rows], [[r for r, _ in row] for row in rows],
-                rank=pid)
+    return Mesh([[d for _, (d, _) in row] for row in rows], [[r for r, _ in row] for row in rows],
+                rank=pid, ids=[[c for _, (_, c) in row] for row in rows])
+
+
+def exchange_backend(ids_by_process: list[list[str | None]]) -> str:
+    """The transport of a global mesh's exchanges, from each process's
+    physical devices (:func:`card_id`, in process order): ``"nccl"`` where
+    every device is a card and no card is held by two processes (NCCL binds
+    one card to one rank), else ``"gloo"`` (the host buffers).  A topology
+    fact: every process computes the same answer from the same list."""
+    owners: dict[str, set[int]] = {}
+    for rank, ids in enumerate(ids_by_process):
+        for c in ids:
+            if c is None:
+                return "gloo"
+            owners.setdefault(c, set()).add(rank)
+    return "nccl" if all(len(o) == 1 for o in owners.values()) else "gloo"
+
+
+def await_events(events, seconds: float) -> bool:
+    """Wait on the host until every CUDA event of ``events`` has completed
+    or ``seconds`` have passed; whether they all completed."""
+    deadline = time.monotonic() + seconds
+    for ev in events:
+        while not ev.query():
+            if time.monotonic() > deadline:
+                return False
+            time.sleep(0)
+    return True
+
+
+def _abort(group) -> None:
+    """Abort the NCCL group: its communicators end."""
+    group._get_backend(torch.device("cuda")).abort()
+
+
+def _give_up(group) -> None:
+    """A replay's NCCL kernel waits for a peer that is gone, and nothing
+    makes it return: on the card, torch's abort of the group did not return
+    while such a kernel waited, and every later sync on the card would wait
+    for it.  So abort the group on a thread of its own, and end this
+    process with exit code 1 after :data:`END_GRACE_S` whatever catches the
+    error or hangs in teardown (faulthandler's native watchdog, which dumps
+    every thread's stack first), as torch's NCCL watchdog ends a process
+    whose collective timed out."""
+    threading.Thread(target=_abort, args=(group,), daemon=True).start()
+    faulthandler.dump_traceback_later(END_GRACE_S, exit=True)
+
+
+def _nccl_group():
+    """The NCCL group over every process of the process group, made once:
+    every process makes it at its first collective span, in one order."""
+    if "nccl" not in _groups:
+        _groups["nccl"] = _dist().new_group(
+            backend="nccl", timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    return _groups["nccl"]
 
 
 class ProcessSpan:
@@ -183,38 +291,69 @@ class ProcessSpan:
     process of global shard 0), ``"last"`` the ``v`` of the process that
     owns the last shard, ``"gather"`` every process's ``v [k, ...]``
     concatenated in process order; the result lies on ``device``.  The
-    default, :meth:`staged`, runs eagerly; ``dist.meshgraph`` swaps in one
-    that makes each exchange a boundary between two phases of CUDA graphs.
-    Both move the data through host buffers made once (:meth:`host_buffers`,
-    pinned for a card) and run the gloo call on them (:meth:`communicate`).
-    Every process makes the same exchanges in the same order: gloo pairs
-    them by order.  A peer that is gone makes the call raise, at the latest
-    after :data:`TIMEOUT_S`."""
+    default, :meth:`eager`, runs eagerly; ``dist.meshgraph`` swaps in one
+    that runs the exchanges inside the CUDA graphs of a step, or between
+    them.  Both move the data through buffers made once (:meth:`buffers`)
+    and run the call of the exchange on them (:meth:`communicate`).
 
-    def __init__(self, mesh):
+    ``transport``: ``"collective"`` (the default where
+    :func:`exchange_backend` gives NCCL) runs the collectives on buffers on
+    the home card, the one card the NCCL group binds in each process (with
+    two cards a process, the other card's data reaches it through the
+    process's own transfers: one communicator a process, whichever of its
+    cards a shard is on); on CPU tensors the same calls run on gloo, as the
+    CPU tests run them.  ``"staged"`` (the default otherwise) runs gloo on
+    pinned host buffers.  :attr:`backend` names the library that moves the
+    data.  Nothing falls back: a failed NCCL call, or a group that cannot
+    form, raises.
+
+    Every process makes the same exchanges in the same order: gloo pairs
+    them by order on the host, NCCL by launch order on the card.  A peer
+    that is gone makes a gloo call raise, at the latest after
+    :data:`TIMEOUT_S`; an NCCL kernel inside a replayed graph would wait
+    for it forever, so a replay ends with :meth:`wait`."""
+
+    def __init__(self, mesh, transport: str | None = None):
         rows = mesh.rows()
         self.lo, self.hi, self.n = rows[0], rows[-1] + 1, mesh.shape["time"]
         self.rank = mesh.rank
         self.prev = mesh.ranks[self.lo - 1][0] if self.lo > 0 else None
         self.next = mesh.ranks[self.hi][0] if self.hi < self.n else None
         self.last = mesh.ranks[-1][0]
-        self.world = len({r for row in mesh.ranks for r in row})
-        self.exchange = self.staged
-        self._staging: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+        ranks = sorted({r for row in mesh.ranks for r in row})
+        self.world = len(ranks)
+        self.home = mesh.home
+        if transport is None:
+            ids = [[c for row, rr in zip(mesh.ids, mesh.ranks) for c, q in zip(row, rr) if q == r]
+                   for r in ranks]
+            transport = "collective" if exchange_backend(ids) == "nccl" else "staged"
+        if transport not in ("collective", "staged"):
+            raise ValueError(f"unknown transport {transport!r}")
+        self.transport = transport
+        self.backend = "nccl" if transport == "collective" and self.home.type == "cuda" else "gloo"
+        self.group = _nccl_group() if self.backend == "nccl" else None
+        self.exchange = self.eager
+        self._bufs: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
-    def host_buffers(self, kind: str, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """``(send, recv)``: host buffers for an exchange of ``v`` (pinned
-        where ``v`` is on a card; one buffer for ``"last"``, a broadcast in
-        place).  ``recv`` starts as zeros: the halo global shard 0 gets."""
-        pin = v.is_cuda
-        send = torch.empty(v.shape, dtype=v.dtype, pin_memory=pin)
+    def buffers(self, kind: str, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """``(send, recv)`` for an exchange of ``v``: on the home card for
+        the collectives, else on the host (pinned where ``v`` is on a card);
+        one buffer for ``"last"``, a broadcast in place.  ``recv`` starts as
+        zeros: the halo global shard 0 gets."""
+        where = ({"device": self.home} if self.transport == "collective"
+                 else {"pin_memory": v.is_cuda})
+        send = torch.empty(v.shape, dtype=v.dtype, **where)
         if kind == "last":
             return send, send
         shape = (self.world * v.shape[0], *v.shape[1:]) if kind == "gather" else v.shape
-        return send, torch.zeros(shape, dtype=v.dtype, pin_memory=pin)
+        return send, torch.zeros(shape, dtype=v.dtype, **where)
 
     def communicate(self, kind: str, send: torch.Tensor, recv: torch.Tensor) -> None:
-        """The gloo call of one exchange, from ``send`` into ``recv``."""
+        """The call of one exchange, from ``send`` into ``recv``: gloo on
+        the host buffers, or the collective (:meth:`collective`)."""
+        if self.transport == "collective":
+            self.collective(kind, send, recv)
+            return
         dist = _dist()
         if kind == "halo":
             reqs = []
@@ -231,18 +370,59 @@ class ProcessSpan:
         else:
             raise ValueError(f"unknown exchange {kind!r}")
 
-    def staged(self, kind: str, v: torch.Tensor, device) -> torch.Tensor:
-        """The eager exchange: ``v`` copied into host buffers kept per kind,
-        shape and dtype, the gloo call, the result copied to a new tensor
-        on ``device``.  The copies wait for the card, so the buffers are
-        free again when it returns."""
+    def collective(self, kind: str, send: torch.Tensor, recv: torch.Tensor) -> None:
+        """The collective of one exchange on the buffers themselves: the
+        halo a send to the next process and a receive from the previous one
+        in one batch, ``"last"`` a broadcast from the last shard's process,
+        ``"gather"`` an all-gather into one tensor in process order.  On the
+        card each is enqueued on the current stream's order (inside a
+        capture, into its graph) and the host does not wait."""
+        dist = _dist()
+        g = self.group
+        with torch.cuda.device(send.device) if send.is_cuda else contextlib.nullcontext():
+            if kind == "halo":
+                ops = []
+                if self.next is not None:
+                    ops.append(dist.P2POp(dist.isend, send, self.next, g))
+                if self.prev is not None:
+                    ops.append(dist.P2POp(dist.irecv, recv, self.prev, g))
+                for r in dist.batch_isend_irecv(ops):
+                    r.wait()
+            elif kind == "last":
+                dist.broadcast(send, self.last, group=g)
+            elif kind == "gather":
+                dist.all_gather_into_tensor(recv, send, group=g)
+            else:
+                raise ValueError(f"unknown exchange {kind!r}")
+
+    def eager(self, kind: str, v: torch.Tensor, device) -> torch.Tensor:
+        """The eager exchange: ``v`` copied into buffers kept per kind,
+        shape and dtype, the call, the result copied to a new tensor on
+        ``device``.  Staged, the copies wait for the card, so the host
+        buffers are free again when it returns; the collectives keep the
+        card's stream order."""
         key = (kind, tuple(v.shape), v.dtype, v.is_cuda)
-        if key not in self._staging:
-            self._staging[key] = self.host_buffers(kind, v)
-        send, recv = self._staging[key]
+        if key not in self._bufs:
+            self._bufs[key] = self.buffers(kind, v)
+        send, recv = self._bufs[key]
         send.copy_(v)
         self.communicate(kind, send, recv)
         return recv.to(device, copy=True)
+
+    def wait(self, events) -> None:
+        """Wait on the host for ``events``, the end of a replay whose NCCL
+        kernels wait on the peers (torch's watchdog does not see graph
+        replays), at most :data:`TIMEOUT_S`.  Past it the group is given up
+        (:func:`_give_up`: aborted, and this process ends :data:`END_GRACE_S`
+        later) and this raises."""
+        if await_events(events, TIMEOUT_S):
+            return
+        msg = (f"a replay's NCCL exchanges did not finish within {TIMEOUT_S} s: a peer of "
+               f"process {self.rank} is gone; the NCCL group was aborted and the process "
+               f"ends in {END_GRACE_S} s")
+        print(msg, file=sys.stderr, flush=True)
+        _give_up(self.group)
+        raise RuntimeError(msg)
 
 
 def egress_owner(plan: ReceiverPlan, n_hosts: int) -> dict[int, int]:

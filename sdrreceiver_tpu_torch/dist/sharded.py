@@ -31,15 +31,21 @@ shard NCO phases), the input tail and the group outputs in, and per split
 bucket its channel ranges out and back.  Where the mesh spans processes,
 what crosses a process boundary (the halo into the process's first shard,
 the DC totals, the input tail, the group outputs and the last shard's
-cascade histories) is one call of ``ProcessSpan.exchange`` each, a gloo
-call on host buffers.  Between two transfers or exchanges each card
-computes on its own, so on the card (``cuda_graphs=True``, the default)
-each step entry replays one CUDA graph per phase and card, with the
-transfers as copies between static buffers and the exchanges as copies
-through static pinned buffers around the gloo call in between
-(``dist.meshgraph``), the counterpart of the JAX package's one compiled
-``shard_map`` step.  ``cuda_graphs=False`` runs the same step eagerly, its
-transfers as plain ``.to()`` copies.
+cascade histories) is one call of ``ProcessSpan.exchange`` each: an NCCL
+collective on the home card's tensors where every process holds cards no
+other process holds, else a gloo call on host buffers (:attr:`exchange`
+says which).  The exchange names its destination device.  With two cards
+a process, a source on the second card reaches the home card through one
+of the process's own transfers: the NCCL group binds one card a process,
+so one communicator serves every shard of it.  Between two transfers or
+exchanges each card computes on its own, so on the card
+(``cuda_graphs=True``, the default) each step entry replays one CUDA graph
+per phase and card (``dist.meshgraph``), the counterpart of the JAX
+package's one compiled ``shard_map`` step: the transfers are copies
+between static buffers, the NCCL collectives are captured inside the
+graphs, and a gloo exchange is a host call between two phases, through
+static pinned buffers.  ``cuda_graphs=False`` runs the same step eagerly,
+its transfers as plain ``.to()`` copies.
 """
 
 from __future__ import annotations
@@ -167,6 +173,12 @@ class ShardedReceiver(CompiledReceiver):
                         sub = dataclasses.replace(b, subs=b.subs[lo:hi])
                         parts.append((lo, hi, sub, _ChanSlice(self, bk, lo, hi, dev)))
                     self._chan_parts[bk] = parts
+
+    @property
+    def exchange(self) -> str | None:
+        """The library of the exchanges across processes, ``"nccl"`` or
+        ``"gloo"``; None where the mesh lies in this process."""
+        return None if self._span is None else self._span.backend
 
     # --------------------------------------------------------- transfers
     @contextlib.contextmanager
