@@ -107,12 +107,29 @@ its result and failing the script (non-zero exit) if it fails:
      bit-equal to its own topics of the one-process 2x1 mesh's
      ``step_u8``), and a capture that fails in one process of two
      (``chip_smoke.py --capture-failure-procs``): both processes exit
-     non-zero, the peer on its next exchange
+     non-zero, the peer on its next exchange.  Then the flagship on a
+     global 1x2 over the two processes on the card at 384,000 (a time row
+     across both: each process computes the whole front and only its own
+     channel ranges of the split buckets, the other ranges come through
+     one gloo ``"chan"`` exchange a bucket): graphs bit-equal to eager, the
+     union of the topics each process publishes bit-equal to the
+     one-process 1x2 mesh, the per-shard ``mix_cascade`` site in each
+     process against its plain version (the kernels line's global 1x2 row)
 
-``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes,
-phase 21's meshes on distinct cards (2x1 and 4x1, NCCL) and the capture
-failure on distinct cards (a machine of four cards);
-``chip_smoke.py --procs-on-cards`` only the last two (two cards or more).
+``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes and
+phase 21's paths on distinct cards (a machine of four cards);
+``chip_smoke.py --procs-on-cards`` only the latter (two cards or more), a
+card a process and NCCL inside the graphs: the global 2x1; the global 1x2
+of the flagship at 1,536,000 and 384,000 and of the 66-channel plan at
+384,000 (each checked as above, and also against the same graphs with
+gloo exchanges, with 0 host exchanges a replay, its NCCL rows, device µs,
+idle share and peak memory), step ms of the global 1x2 / global 2x1 /
+one-process 1x2 over the same cards / one device; with four cards, the
+global 4x1 of two cards a process and the flagship's global 2x2 of four
+processes (rows and columns both across processes); ``bench
+--coordinator --partition global --mesh 1x2`` and ``run`` over rtl_tcp on
+the global 1x2 (NCCL, ZMQ audio bit-equal to the one-process 1x2 over
+the same cards); and the capture failure on distinct cards.
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -1366,12 +1383,29 @@ def phase_alt_mesh(alt: dict) -> dict:
 def cli_child(argv: list[str]) -> int:
     """``chip_smoke.py --cli ARGS``: the port's CLI in this process, as
     phase 18 starts its processes; after the CLI's own output, a last line
-    with the launch counts of every receiver the CLI built."""
+    with the launch counts of every receiver the CLI built.  Under
+    ``--coordinator`` the counts are read, and the receivers let go, when
+    the CLI leaves its process group: a live receiver whose graphs
+    captured NCCL collectives holds the group's teardown."""
     from sdrreceiver_tpu_torch.cli.main import main as cli_main
+    from sdrreceiver_tpu_torch.dist import multihost
+
+    launches: list[dict] = []
+    leave = multihost.shutdown
+
+    def read_then_leave():
+        launches.extend(path_launches(rx) for rx in built)
+        built.clear()
+        leave()
 
     with receivers_built() as built:
-        rc = cli_main(argv)
-    print(json.dumps({"launches": [path_launches(rx) for rx in built]}))
+        multihost.shutdown = read_then_leave
+        try:
+            rc = cli_main(argv)
+        finally:
+            multihost.shutdown = leave
+        launches.extend(path_launches(rx) for rx in built)
+    print(json.dumps({"launches": launches}))
     return rc
 
 
@@ -1866,25 +1900,41 @@ def capture_failure_child() -> int:
     return 0
 
 
-def proc_mesh(coord: str, pid: int, n_local: int):
-    """(mesh, plan): this process joined to a gloo group of two at
-    ``coord`` as ``pid``, and the ``--partition global`` mesh over both
-    processes' ``n_local`` cards each (1: the card; 2: two distinct cards,
-    a global 4x1), with the flagship plan."""
-    from sdrreceiver_tpu_torch.dist import local_devices, multihost
+def proc_plan(name: str):
+    """Phase 21's plans: the flagship, or the 66-channel plan
+    (:func:`cband_ini`)."""
     from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.config import parse_ini_text
     from sdrreceiver_tpu_torch.graph.plan import build_plan
 
-    multihost.initialize(coord, 2, pid)
+    return build_plan(benchmark_config() if name == "flagship" else parse_ini_text(cband_ini()))
+
+
+def proc_mesh(coord: str, pid: int, n_local: int, n_chan: int = 1, n_proc: int = 2,
+              plan: str = "flagship"):
+    """(mesh, plan): this process joined to a gloo group of ``n_proc`` at
+    ``coord`` as ``pid``, and the ``--partition global`` mesh of ``n_chan``
+    columns over every process's ``n_local`` cards (1: the card; 2: two
+    distinct cards, a global 4x1 of two processes), laid out as the JAX
+    package's: with one card a process and ``n_chan`` 2, a time row spans
+    two processes (a global 1x2, or 2x2 of four)."""
+    from sdrreceiver_tpu_torch.dist import local_devices, multihost
+
+    multihost.initialize(coord, n_proc, pid)
     devs = [torch.device("cuda", torch.cuda.current_device())] if n_local == 1 \
         else local_devices(n_local, "cuda")
-    return multihost.global_mesh(1, devs), build_plan(benchmark_config())
+    return multihost.global_mesh(n_chan, devs), proc_plan(plan)
+
+
+def mesh_name(mesh) -> str:
+    return f"{mesh.shape['time']}x{mesh.shape['chan']}"
 
 
 def proc_graphs_child(argv: list[str]) -> int:
-    """``chip_smoke.py --procgraphs COORD PID N_LOCAL``: one of phase 21's
-    two processes.  On the global mesh (:func:`proc_mesh`) at 1,536,000 and
-    384,000: the sharded receiver with graphs per phase and card (the
+    """``chip_smoke.py --procgraphs COORD PID N_LOCAL [N_CHAN N_PROC PLAN
+    BLOCKS]``: one of phase 21's processes (default: of two, the flagship,
+    one column, blocks ``1536000,384000``).  On the global mesh
+    (:func:`proc_mesh`) at each block: the sharded receiver with graphs per phase and card (the
     default) against the eager one (``cuda_graphs=False``) on the same
     blocks, the burst, the launches, step ms in turns, the profiler's rows
     (both processes profile at once) and peak memory; a last line of JSON
@@ -1896,26 +1946,38 @@ def proc_graphs_child(argv: list[str]) -> int:
     held bit-equal too and timed in the same turns; a replay must make no
     host exchange and run NCCL kernels, every per-shard ``mix_cascade``
     site must agree with its plain version exactly.  Sharing a card, the
-    exchanges must be gloo's."""
+    exchanges must be gloo's.  Where a time row spans processes, each
+    process's split bucket steps compute only its own channel ranges.  The
+    outputs whose topics a process publishes go to ``build/smoke/procs/``,
+    for the parent to hold their union against a one-process mesh."""
     from sdrreceiver_tpu_torch.dist import multihost
 
     coord, pid, n_local = argv[0], int(argv[1]), int(argv[2])
-    mesh, plan = proc_mesh(coord, pid, n_local)
+    n_chan, n_proc = (int(argv[3]), int(argv[4])) if len(argv) > 4 else (1, 2)
+    plan_name = argv[5] if len(argv) > 5 else "flagship"
+    blocks = [int(b) for b in argv[6].split(",")] if len(argv) > 6 else [BLOCK, LIVE_BLOCK]
+    mesh, plan = proc_mesh(coord, pid, n_local, n_chan, n_proc, plan_name)
     cards = [str(d) for d in mesh.local()]
     # each case's receivers are gone before the process group is left: a
     # graph that captured NCCL collectives holds their communicator
-    out = [proc_graphs_case(mesh, plan, block, cards) for block in (BLOCK, LIVE_BLOCK)]
+    out = [proc_graphs_case(mesh, plan, block, cards, plan_name) for block in blocks]
     multihost.shutdown()
-    print(json.dumps({"process_id": pid, "cards": cards, "cases": out}))
+    print(json.dumps({"process_id": pid, "cards": cards, "mesh": mesh_name(mesh),
+                      "plan": plan_name, "cases": out}))
     return 0
 
 
-def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
+def proc_outputs_path(plan_name: str, mesh_shape: str, block: int, pid: int) -> pathlib.Path:
+    return WORK / "procs" / f"{plan_name}_{mesh_shape}_{block}_p{pid}.npz"
+
+
+def proc_graphs_case(mesh, plan, block: int, cards: list[str], plan_name: str = "flagship") -> dict:
     """One block size of :func:`proc_graphs_child`: its checks, and its
     numbers."""
-    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost, sharded
 
     pid, n = mesh.rank, 4
+    n_proc = len({r for row in mesh.ranks for r in row})
     blocks = torch.tensor(plan_stream(plan, n, block, seed=21), device=mesh.home)
 
     def make(graphs: bool = True, transport: str | None = None):
@@ -1929,17 +1991,44 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
     if nccl:
         rxs["gloo"] = make(transport="staged")
     exchange = {k: r.exchange for k, r in rxs.items()}
-    what = (f"process {pid} of 2, global {mesh.shape['time']}x1 on {cards} "
+    what = (f"process {pid} of {n_proc}, {plan_name} global {mesh_name(mesh)} on {cards} "
             f"(visible cards {os.environ.get('CUDA_VISIBLE_DEVICES', 'all')}), block {block}, "
             f"exchanges {exchange}")
     if exchange != ({"graph": "nccl", "eager": "nccl", "gloo": "gloo"} if nccl
                     else {"graph": "gloo", "eager": "gloo"}):
         fail(f"{what}: not the transport its cards call for")
+    computed: dict[str, int] = {}  # channels of the split bucket steps of the eager step
+    step_part = sharded._ChanSlice._bucket_step
+
+    def counting(self, g, bi, *args):
+        key = f"g{g.index}/b{bi}"
+        computed[key] = computed.get(key, 0) + g.buckets[bi].channels
+        return step_part(self, g, bi, *args)
+
     runs = {}
     for k, r in rxs.items():
-        runs[k] = entry_run(r, "u8", blocks)
+        if k == "eager":
+            sharded._ChanSlice._bucket_step = counting
+        try:
+            runs[k] = entry_run(r, "u8", blocks)
+        finally:
+            sharded._ChanSlice._bucket_step = step_part
         print(f"{what}: {k} stepped {n} blocks", flush=True)
     got, g_states = runs["graph"]
+    mine = {bk: sum(hi - lo for lo, hi, _, part in parts if part is not None)
+            for bk, parts in rxs["graph"]._chan_parts.items()}
+    whole = {bk: parts[-1][1] for bk, parts in rxs["graph"]._chan_parts.items()}
+    per = {bk: c // n for bk, c in computed.items()}
+    print(f"{what}: channels of the split buckets computed here per step {per} (own ranges "
+          f"{mine}, of {whole})", flush=True)
+    if per != mine \
+            or (len(mesh.row_ranks()) > 1 and not all(mine[bk] < whole[bk] for bk in mine)):
+        fail(f"{what}: the split bucket steps did not compute exactly this process's ranges")
+    owner = multihost.output_key_owner(plan, n_proc)
+    path = proc_outputs_path(plan_name, mesh_name(mesh), block, pid)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    np.savez(path, **{f"{i}|{k}": v for i, o in enumerate(got) for k, v in o.items()
+                      if multihost.key_owner(owner, k) == pid})
     launches = {k: path_launches(r) for k, r in rxs.items()}
     (entry,) = rxs["graph"]._graphs._entries.values()
     t = entry.body.transfers
@@ -1964,7 +2053,8 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
     print(f"{what}: step_many_u8 k=4 vs 4 graph steps bit-equal: {same}", flush=True)
     if not same:
         fail(f"{what}: the burst graphs differ from 4 graph steps")
-    err = sites_vs_plain(gx, what)["err"]
+    vs = sites_vs_plain(gx, what, reps=20 if len(mesh.row_ranks()) > 1 else 0)
+    err = vs["err"]
     if nccl and err != 0:
         fail(f"{what}: a per-shard mix_cascade site is {err:.3e} from its plain version")
     order = ("eager", "graph", "gloo", "gloo", "graph", "eager") if nccl else \
@@ -1985,7 +2075,8 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
               f"{mem[k]:.1f} MiB", flush=True)
     per_step = sum(prof["graph"]["launched"].values())
     if any(kinds[k]["mix_cascade"] != kinds["graph"]["mix_cascade"] for k in kinds) \
-            or kinds["graph"]["mix_cascade"] != per_step or per_step != len(mesh.rows()):
+            or kinds["graph"]["mix_cascade"] != per_step \
+            or per_step != len(mesh.rows()) * len(gx._fronts):
         fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade rows, "
              f"the other steps {[kinds[k]['mix_cascade'] for k in kinds]}, the wrappers "
              f"count {per_step:g}")
@@ -1994,25 +2085,34 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str]) -> dict:
              f"{per_replay['collectives']} collectives (the gloo graphs "
              f"{kinds['gloo']['nccl']:g})")
     return {"block": block, "err": err, "ms": ms, "turns": turns, "idle": idle,
-            "mem": mem, "exchange": exchange["graph"],
+            "mem": mem, "exchange": exchange["graph"], "launches": launches["graph"],
+            "site_ms": vs["ms"], "site_plain_ms": vs["plain_ms"], "channels": mine,
+            "sites": {k: t for k, (_, t) in gx.mix_cascades().items()},
             "kinds": kinds, **per_replay,
             "device_us": {k: p["device_us"] for k, p in prof.items()},
             "profiled_ms": {k: p["wall_ms"] for k, p in prof.items()}}
 
 
-def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False) -> list[dict]:
+def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False, n_chan: int = 1,
+                      n_proc: int = 2, plan: str = "flagship",
+                      blocks: tuple[int, ...] = (BLOCK, LIVE_BLOCK)) -> list[dict]:
     """21. The sharded receiver's step entries as CUDA graphs on a mesh
-    across processes: two processes (:func:`proc_graphs_child`) of
+    across processes: ``n_proc`` processes (:func:`proc_graphs_child`) of
     ``n_local`` cards each, all of them the one card, or (``distinct``)
-    each process its own cards; each fails on its own checks.  Each
-    process's cases."""
+    each process its own cards, on a global mesh of ``n_chan`` columns;
+    each fails on its own checks.  Where ``n_chan`` > 1 the union of the
+    topics the processes publish is then held bit-equal to the
+    one-process mesh of the same shape over the same cards (or the one
+    card).  Each process's cases."""
     coord = f"127.0.0.1:{free_port()}"
     envs = None
     if distinct:
         envs = [{"CUDA_VISIBLE_DEVICES": ",".join(str(n_local * i + j) for j in range(n_local))}
-                for i in (0, 1)]
+                for i in range(n_proc)]
+    shutil.rmtree(WORK / "procs", ignore_errors=True)
     t0 = time.perf_counter()
-    res = processes([["--procgraphs", coord, i, n_local] for i in (0, 1)], timeout=600, envs=envs)
+    res = processes([["--procgraphs", coord, i, n_local, n_chan, n_proc, plan,
+                      ",".join(map(str, blocks))] for i in range(n_proc)], timeout=600, envs=envs)
     secs = time.perf_counter() - t0
     out = []
     for i, (rc, so, se) in enumerate(res):
@@ -2020,9 +2120,55 @@ def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False) -> li
         if rc:
             fail(f"phase 21: process {i} exited {rc}: {se[-3000:]}")
         out.append(json.loads(so.strip().splitlines()[-1]))
-    print(f"phase 21, {n_local} card(s) a process{', distinct' if distinct else ''}: both "
-          f"processes passed ({secs:.1f} s, start-up included) {card}")
+    print(f"phase 21, {plan} global {out[0]['mesh']} of {n_proc} processes, {n_local} card(s) a "
+          f"process{', distinct' if distinct else ''}: every process passed ({secs:.1f} s, "
+          f"start-up included) {card}")
+    if n_chan > 1:
+        out[0]["union_ms"] = {block: proc_union(plan, out[0]["mesh"], n_proc, n_local, distinct,
+                                                block, card) for block in blocks}
     return out
+
+
+def proc_union(plan_name: str, shape: str, n_proc: int, n_local: int, distinct: bool,
+               block: int, card: str) -> dict:
+    """The union of the outputs whose topics each process of a global mesh
+    publishes (:func:`proc_graphs_case` saved them) against the one-process
+    mesh of the same shape over the same cards (distinct: as many cards as
+    the processes held; else the one card), on the same blocks: bit-equal.
+    Also times that mesh and one device in turns; their ms."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh, multihost
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+
+    plan = proc_plan(plan_name)
+    n_time, n_chan = map(int, shape.split("x"))
+    devs = ([torch.device("cuda", i) for i in range(n_proc * n_local)] if distinct
+            else [torch.device(DEVICE)] * (n_time * n_chan))
+    blocks = torch.tensor(plan_stream(plan, 4, block, seed=21), device=devs[0])
+    rx = ShardedReceiver(plan, make_mesh(n_time, n_chan, devs), block)
+    ref, _ = entry_run(rx, "u8", blocks)
+    owner = multihost.output_key_owner(plan, n_proc)
+    want = {f"{i}|{k}": v for i, o in enumerate(ref) for k, v in o.items()
+            if multihost.key_owner(owner, k) is not None}
+    union: dict = {}
+    for pid in range(n_proc):
+        with np.load(proc_outputs_path(plan_name, shape, block, pid)) as z:
+            got = {k: z[k] for k in z.files}
+        if set(got) & set(union):
+            fail(f"{plan_name} global {shape}: an output published by two processes")
+        union.update(got)
+    same = union.keys() == want.keys() and all(np.array_equal(union[k], want[k]) for k in want)
+    one = CompiledReceiver(plan, block, device=devs[0])
+    turns = step_turns({"mesh": rx, "one": one}, "u8", blocks, 20, ("one", "mesh", "mesh", "one"))
+    ms = {k: float(np.mean(v)) for k, v in turns.items()}
+    print(f"{plan_name} global {shape} of {n_proc} processes, block {block}: the union of the "
+          f"{len(union) // 4} outputs a block the processes publish vs the one-process {shape} "
+          f"mesh over {sorted({str(d) for d in devs})}, 4 blocks, bit-equal: {same}; that mesh "
+          f"{ms['mesh']:.4f} ms/step, one device {ms['one']:.4f} ms/step (in turns "
+          f"{turns}) {card}", flush=True)
+    if not same:
+        fail(f"{plan_name} global {shape} block {block}: the processes' union differs from the "
+             f"one-process mesh")
+    return ms
 
 
 def capture_failure_procs_child(argv: list[str]) -> int:
@@ -2092,54 +2238,48 @@ def phase_capture_failure_procs(card: str, distinct: bool = False) -> float:
     return secs
 
 
-def phase_proc_cli(dev, card: str) -> dict:
-    """21 (end). First card runs of the CLI across processes: ``bench
-    --coordinator`` under both partitions, ``run --coordinator --partition
-    global --mesh 2x1`` over loopback rtl_tcp (each process's ZMQ audio
-    against its own topics of the one-process 2x1 mesh's ``step_u8`` on the
-    same bytes), and a capture that fails in one process of two."""
-    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
-    from sdrreceiver_tpu_torch.graph.plan import build_plan
+def proc_bench(ini: pathlib.Path, extra: list, block: int, exchange, where: str, card: str,
+               envs: list[dict] | None = None) -> dict:
+    """``bench --coordinator`` over two processes (``envs``: each its own
+    visible cards); fails unless both stepped through graphs at ``block``
+    with ``exchange`` (each process's ``"exchange"``).  Process 0's
+    ``multihost`` summary."""
+    coord = f"127.0.0.1:{free_port()}"
+    res = processes([["--cli", "bench", "-s", ini, "--device", DEVICE, "--block", block,
+                      "--blocks", 20, "--coordinator", coord, "--num-processes", 2,
+                      "--process-id", i, *extra] for i in (0, 1)], envs=envs)
+    what = f"bench --coordinator {' '.join(map(str, extra)) or '(groups)'}"
+    sums = []
+    for i, (rc, so, se) in enumerate(res):
+        if rc:
+            fail(f"{what}: process {i} exited {rc}: {se[-2000:]}")
+        sums.append(json.loads(so.strip().splitlines()[-2]))
+    mh = [s["multihost"] for s in sums]
+    print(f"{what}, 2 processes {where}, flagship block {block}: mode {[s['mode'] for s in sums]}, "
+          f"cuda_graphs {[s['cuda_graphs'] for s in sums]}, exchange "
+          f"{[s.get('exchange') for s in sums]}, Msamples/s per process "
+          f"{mh[0]['sps_per_host_msps']}, sps_1_full_plan "
+          f"{[m['sps_1_full_plan'] for m in mh]} Msamples/s, eff(2) {mh[0]['eff']} (ceiling "
+          f"{mh[0]['eff_ceiling']}), realtime {[s['realtime_factor'] for s in sums]} {card}")
+    if not all(s["cuda_graphs"] for s in sums) or any(s["block_samples"] != block for s in sums):
+        fail(f"{what}: not on graphs or not at block {block}")
+    if [s.get("exchange") for s in sums] != [exchange, exchange]:
+        fail(f"{what}: exchange {[s.get('exchange') for s in sums]} {where}, not {exchange}")
+    return mh[0]
+
+
+def proc_run(d: pathlib.Path, dev, shape: str, exchange: str, where: str, card: str,
+             envs: list[dict] | None = None, devs=None) -> list[dict]:
+    """``run --coordinator --partition global --mesh SHAPE`` over two
+    processes, each from its own loopback rtl_tcp server of the same bytes
+    to its own ZMQ port, paced: no drop, every block through graphs with
+    ``exchange``, each process's ZMQ audio bit-equal to its own topics of
+    the one-process mesh of that shape (over ``devs``, default the card)
+    stepping the same bytes.  Each process's summary."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh, multihost
     from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
 
-    d = WORK / "proc_cli"
-    shutil.rmtree(d, ignore_errors=True)
-    d.mkdir(parents=True)
-    out: dict = {"bench": {}}
-    bench_ini = d / "flag.ini"
-    bench_ini.write_text(flagship_ini(free_port()))
-    for partition, extra in (("groups", []),
-                             ("global", ["--partition", "global", "--mesh", "2x1"])):
-        for block in (LIVE_BLOCK, BLOCK):
-            coord = f"127.0.0.1:{free_port()}"
-            res = processes([["--cli", "bench", "-s", bench_ini, "--device", DEVICE, "--block",
-                              block, "--blocks", 20, "--coordinator", coord, "--num-processes", 2,
-                              "--process-id", i, *extra] for i in (0, 1)])
-            sums = []
-            for i, (rc, so, se) in enumerate(res):
-                if rc:
-                    fail(f"bench --coordinator {partition}: process {i} exited {rc}: {se[-2000:]}")
-                sums.append(json.loads(so.strip().splitlines()[-2]))
-            mh = [s["multihost"] for s in sums]
-            print(f"bench --coordinator --partition {partition}, 2 processes on one card, flagship "
-                  f"block {block}: mode {[s['mode'] for s in sums]}, cuda_graphs "
-                  f"{[s['cuda_graphs'] for s in sums]}, exchange "
-                  f"{[s.get('exchange') for s in sums]}, Msamples/s per process "
-                  f"{mh[0]['sps_per_host_msps']}, sps_1_full_plan "
-                  f"{[m['sps_1_full_plan'] for m in mh]} Msamples/s, eff(2) {mh[0]['eff']} (ceiling {mh[0]['eff_ceiling']}), realtime "
-                  f"{[s['realtime_factor'] for s in sums]} {card}")
-            if not all(s["cuda_graphs"] for s in sums) or any(s["block_samples"] != block
-                                                               for s in sums):
-                fail(f"bench --coordinator {partition}: not on graphs or not at block {block}")
-            # two processes on one card: NCCL refuses them, the exchanges are gloo's
-            want = [None, None] if partition == "groups" else ["gloo", "gloo"]
-            if [s.get("exchange") for s in sums] != want:
-                fail(f"bench --coordinator {partition}: exchange "
-                     f"{[s.get('exchange') for s in sums]} on one card")
-            out["bench"][(partition, block)] = mh[0]
-
-    # run over rtl_tcp: each process its own server of the same bytes, its
-    # own ZMQ port, its own topics
     n = 12
     raw, tones = flagship_stream(n, LIVE_BLOCK, seed=21)
     plan = build_plan(benchmark_config())
@@ -2151,57 +2291,101 @@ def phase_proc_cli(dev, card: str) -> dict:
     srvs = [LoopbackRtlTcp(list(raw), interval=LIVE_BLOCK / 1_536_000, delay=3.0) for _ in (0, 1)]
     inis = []
     for i in (0, 1):
-        inis.append(d / f"rtl{i}.ini")
+        inis.append(d / f"rtl{shape}_{i}.ini")
         inis[i].write_text(flagship_ini(zports[i], f"127.0.0.1:{srvs[i].port}"))
     subs = [Subscriber(zports[i], watch[i]) for i in (0, 1)]
     coord = f"127.0.0.1:{free_port()}"
     res = processes([["--cli", "run", "-s", inis[i], "--device", DEVICE, "--block", LIVE_BLOCK,
                       "--max-blocks", n, "--coordinator", coord, "--num-processes", 2,
-                      "--process-id", i, "--partition", "global", "--mesh", "2x1"]
-                     for i in (0, 1)])
+                      "--process-id", i, "--partition", "global", "--mesh", shape]
+                     for i in (0, 1)], envs=envs)
     frames = [s.close() for s in subs]
     for srv in srvs:
         srv.join(timeout=15)
-    direct = ShardedReceiver(plan, (2, 1), LIVE_BLOCK, device=DEVICE)
-    ref = steps_audio(direct, torch.tensor(raw, device=dev))
+    n_time, n_chan = map(int, shape.split("x"))
+    direct = ShardedReceiver(plan, make_mesh(n_time, n_chan, devs or [dev] * (n_time * n_chan)),
+                             LIVE_BLOCK)
+    ref = steps_audio(direct, torch.tensor(raw, device=direct.device))
     rates = direct.rates()
+    what = f"run --coordinator --partition global --mesh {shape}"
     runs = []
     for i, (rc, so, se) in enumerate(res):
         if rc:
-            fail(f"run --coordinator --partition global: process {i} exited {rc}: {se[-2000:]}")
+            fail(f"{what}: process {i} exited {rc}: {se[-2000:]}")
         summary = json.loads(so.strip().splitlines()[-2])
         (launches,) = json.loads(so.strip().splitlines()[-1])["launches"]
-        print(f"run --coordinator --partition global --mesh 2x1 over rtl_tcp, paced, process {i} "
-              f"of 2 on one card: {summary['blocks']} blocks, cuda_graphs "
-              f"{summary['cuda_graphs']}, exchange {summary.get('exchange')}, ring "
-              f"{summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
+        print(f"{what} over rtl_tcp, paced, process {i} of 2 {where}: {summary['blocks']} "
+              f"blocks, cuda_graphs {summary['cuda_graphs']}, exchange "
+              f"{summary.get('exchange')}, ring {summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
               f"launches {launches} (expected {n} each); block_latency_ms p50 "
               f"{summary['block_latency_ms']['p50']} {card}")
         if summary["blocks"] != n or summary["ring"]["dropped"] \
                 or summary["rtl_tcp"]["reconnects"] or not summary["cuda_graphs"] \
-                or summary.get("exchange") != "gloo" \
+                or summary.get("exchange") != exchange \
                 or any(v != n for v in launches.values()) or not launches:
-            fail(f"run --coordinator --partition global: process {i} dropped blocks, stepped "
-                 f"eagerly, did not exchange through gloo or missed a launch")
+            fail(f"{what}: process {i} dropped blocks, stepped eagerly, did not exchange "
+                 f"through {exchange} or missed a launch")
         got: dict[str, list[np.ndarray]] = {t: [] for t in watch[i]}
         for f in frames[i]:
             topic = f[0].decode()
             if len(f) != 3 or topic not in got \
                     or struct.unpack("<I", f[1])[0] != rates[f"audio/{topic}"]:
-                fail(f"run --coordinator: process {i} sent a malformed frame {f[:2]}")
+                fail(f"{what}: process {i} sent a malformed frame {f[:2]}")
             got[topic].append(np.frombuffer(f[2], np.int16))
         for topic, parts in got.items():
             k = len(parts)
             same = k >= n - 1 and all(np.array_equal(a, b) for a, b in
                                       zip(parts, [o[f"audio/{topic}"] for o in ref[n - k:]]))
-            print(f"run --coordinator process {i} ZMQ {topic}: {k} frames (of {n}), bit-equal to "
-                  f"the one-process 2x1 mesh's step_u8 on the same bytes: {same}")
+            print(f"{what} process {i} ZMQ {topic}: {k} frames (of {n}), bit-equal to the "
+                  f"one-process {shape} mesh's step_u8 on the same bytes: {same}")
             if not same:
-                fail(f"run --coordinator: process {i}'s {topic} differs from the 2x1 mesh step_u8")
+                fail(f"{what}: process {i}'s {topic} differs from the {shape} mesh step_u8")
         runs.append(summary)
-    out["run"] = runs
+    return runs
 
+
+def phase_proc_cli(dev, card: str) -> dict:
+    """21 (end). First card runs of the CLI across processes: ``bench
+    --coordinator`` under both partitions, ``run --coordinator --partition
+    global --mesh 2x1`` over loopback rtl_tcp (each process's ZMQ audio
+    against its own topics of the one-process 2x1 mesh's ``step_u8`` on the
+    same bytes), and a capture that fails in one process of two."""
+    d = WORK / "proc_cli"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    out: dict = {"bench": {}}
+    bench_ini = d / "flag.ini"
+    bench_ini.write_text(flagship_ini(free_port()))
+    for partition, extra in (("groups", []),
+                             ("global", ["--partition", "global", "--mesh", "2x1"])):
+        for block in (LIVE_BLOCK, BLOCK):
+            # two processes on one card: NCCL refuses them, the exchanges are gloo's
+            out["bench"][(partition, block)] = proc_bench(
+                bench_ini, extra, block, None if partition == "groups" else "gloo",
+                "on one card", card)
+    out["run"] = proc_run(d, dev, "2x1", "gloo", "on one card", card)
     out["capture_failure_s"] = phase_capture_failure_procs(card)
+    return out
+
+
+def proc_cli_cards(card: str) -> dict:
+    """21 (distinct cards). The CLI over two processes of a card each, on a
+    global 1x2 (a time row across both, its split buckets' channel ranges
+    exchanged through NCCL): ``bench --coordinator --partition global
+    --mesh 1x2`` at 384,000 and 1,536,000, then ``run`` over loopback
+    rtl_tcp, each process's ZMQ audio against the one-process 1x2 mesh over
+    the same two cards."""
+    d = WORK / "proc_cli_cards"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    envs = [{"CUDA_VISIBLE_DEVICES": str(i)} for i in (0, 1)]
+    ini = d / "flag.ini"
+    ini.write_text(flagship_ini(free_port()))
+    out = {"bench": {block: proc_bench(ini, ["--partition", "global", "--mesh", "1x2"], block,
+                                       "nccl", "a card each", card, envs)
+                     for block in (LIVE_BLOCK, BLOCK)}}
+    out["run"] = proc_run(d, torch.device(DEVICE), "1x2", "nccl", "a card each", card, envs,
+                          [torch.device("cuda", i) for i in (0, 1)])
     return out
 
 
@@ -2411,6 +2595,8 @@ def main() -> None:
 
     # ---- 21. the mesh step across processes as CUDA graphs ----
     phase_proc_graphs(card)
+    # a time row across the two processes: each its own channel ranges
+    row = [p["cases"][0] for p in phase_proc_graphs(card, n_chan=2, blocks=(LIVE_BLOCK,))]
     if torch.cuda.device_count() >= 2:  # distinct cards: NCCL inside the graphs
         procs_on_cards(card)
     phase_proc_cli(dev, card)
@@ -2479,6 +2665,17 @@ def main() -> None:
          "ms": mesh["ms"], "plain_ms": mesh["plain_ms"],
          **timing_keys(devt, [f"mix_cascade flagship mesh 4x1 block {BLOCK} {k}"
                               for k in mesh["sites"]])},
+        {"name": f"mix_cascade (per-shard merged front, flagship global 1x2 over two processes "
+                 f"on one card, block {LIVE_BLOCK}: one site of "
+                 f"T={row[0]['sites']['shard0/front']} in each process, the same shape as the "
+                 f"one-device front)",
+         "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
+         "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
+         "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
+         "launches": sum(sum(c["launches"].values()) for c in row),
+         "max_abs_err": max(c["err"] for c in row),
+         "ms": row[0]["site_ms"], "plain_ms": row[0]["site_plain_ms"],
+         **timing_keys(devt, [f"mix_cascade flagship block {LIVE_BLOCK} front"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
@@ -2504,14 +2701,33 @@ def cards_header(n: int) -> tuple[list[str], str]:
 
 
 def procs_on_cards(card: str) -> None:
-    """Phase 21's paths across processes that need distinct cards: the
-    global 2x1 with a card a process, the global 4x1 with two cards a
-    process where there are four, both exchanging through NCCL inside the
-    graphs, and the capture failure in one of two processes on distinct
-    cards."""
-    phase_proc_graphs(card, n_local=1, distinct=True)
+    """Phase 21's paths across processes that need distinct cards, every
+    one exchanging through NCCL inside the graphs: the global 2x1 with a
+    card a process; the global 1x2 (a time row across two processes, each
+    computing its own channel ranges) of the flagship at 1,536,000 and
+    384,000 and of the 66-channel plan at 384,000, with the one-process 1x2
+    over the same cards and one device timed beside it; where there are
+    four cards, the global 4x1 with two cards a process and the flagship's
+    global 2x2 of four processes (rows and columns both across
+    processes); ``bench`` and ``run`` on the global 1x2
+    (:func:`proc_cli_cards`); and the capture failure in one of two
+    processes on distinct cards."""
+    two = phase_proc_graphs(card, n_local=1, distinct=True)
+    row = phase_proc_graphs(card, distinct=True, n_chan=2)
+    phase_proc_graphs(card, distinct=True, n_chan=2, plan="cband", blocks=(LIVE_BLOCK,))
+    for k, block in enumerate((BLOCK, LIVE_BLOCK)):
+        ms = {name: [p["cases"][k]["ms"]["graph"] for p in procs]
+              for name, procs in (("global 1x2", row), ("global 2x1", two))}
+        print(f"flagship block {block}, step ms (NCCL graphs, per process; measured in each "
+              f"process's own turns): global 1x2 {ms['global 1x2']} / global 2x1 "
+              f"{ms['global 2x1']} / one-process 1x2 {row[0]['union_ms'][block]['mesh']:.4f} / "
+              f"one device {row[0]['union_ms'][block]['one']:.4f}; device us per process "
+              f"{[p['cases'][k]['device_us']['graph'] for p in row]} (1x2), idle share "
+              f"{[round(p['cases'][k]['idle']['graph'], 4) for p in row]} (1x2) {card}")
     if torch.cuda.device_count() >= 4:
         phase_proc_graphs(card, n_local=2, distinct=True)
+        phase_proc_graphs(card, distinct=True, n_chan=2, n_proc=4)
+    proc_cli_cards(card)
     phase_capture_failure_procs(card, distinct=True)
 
 

@@ -21,8 +21,12 @@ processes, ``span`` (``dist.multihost.ProcessSpan``) carries the transfers
 that cross a process boundary, each one call of its ``exchange`` hook
 (which ``dist.meshgraph`` swaps, as it swaps ``move``): the halo into this
 process's first shard, the last shard's cascade history, the gathers,
-each an NCCL collective or a gloo call (``ProcessSpan.transport``);
-``span=None`` means this process computes every shard.
+each an NCCL collective or a gloo call (``ProcessSpan.transport``) among
+the processes of this process's time column; ``span=None`` means this
+process computes every shard (one process, or a column of this process
+alone: where a time row spans processes, each computes its rows whole, as
+the JAX ``shard_map`` repeats the front over the chan axis, and nothing
+of the front crosses between them).
 
   * FIR/cascade halos: right shift of each shard's tail
     (:func:`right_halo`); shard 0 gets zeros, where the carried history goes

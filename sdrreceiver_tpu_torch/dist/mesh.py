@@ -13,6 +13,15 @@ tensor copies between their devices; a mesh whose devices belong to several
 processes (``dist.multihost.global_mesh``) records each entry's owning
 process and physical identity, and the shards of other processes are
 computed there.
+
+Across processes each process's devices form one rectangle of the grid:
+whole time rows, or one run of columns of one row (a time row that spans
+processes, as the JAX package's ``global_mesh`` lays one out when a process
+holds fewer devices than ``n_chan``).  A process computes the time shards
+of every row it holds a device in; the processes of its **column**
+(:meth:`Mesh.column_ranks`, its time neighbours) exchange the time halos and
+gathers, and those of its **row** (:meth:`Mesh.row_ranks`) the channel
+ranges of the split buckets.
 """
 
 from __future__ import annotations
@@ -46,27 +55,77 @@ class Mesh:
         self.ids = ([list(r) for r in ids] if ids is not None
                     else [[None] * n_chan for _ in range(n_time)])
         self.shape = {TIME_AXIS: n_time, CHAN_AXIS: n_chan}
-        rows = self.rows()
+        for r in sorted({q for row in self.ranks for q in row} | {rank}):
+            self._check_rectangle(r)
+
+    def _cells(self, rank: int) -> tuple[list[int], list[int]]:
+        """The rows and the columns that hold a device of process ``rank``."""
+        rows = [i for i, row in enumerate(self.ranks) if rank in row]
+        cols = sorted({j for row in self.ranks for j, q in enumerate(row) if q == rank})
+        return rows, cols
+
+    def _check_rectangle(self, rank: int) -> None:
+        rows, cols = self._cells(rank)
         if not rows or rows != list(range(rows[0], rows[-1] + 1)):
             raise ValueError(f"process {rank} must own a contiguous run of time rows")
-        if any(self.ranks[i][j] != rank for i in rows for j in range(n_chan)):
-            raise ValueError("a time row must belong to one process")
+        n_cells = sum(q == rank for row in self.ranks for q in row)
+        if n_cells != len(rows) * len(cols) or (
+                len(rows) > 1 and len(cols) != self.shape[CHAN_AXIS]):
+            raise ValueError(
+                f"process {rank}'s devices must cover whole time rows or one run of columns "
+                f"of one row (a process's device count a multiple or a divisor of n_chan="
+                f"{self.shape[CHAN_AXIS]})")
 
     def rows(self) -> list[int]:
-        """The time shards this process computes."""
-        return [i for i, r in enumerate(self.ranks) if r[0] == self.rank]
+        """The time shards this process computes: every row it holds a
+        device in."""
+        return self._cells(self.rank)[0]
+
+    def columns(self) -> list[int]:
+        """The chan positions of this process's devices (the same in each of
+        its rows)."""
+        return self._cells(self.rank)[1]
+
+    def column_ranks(self, rank: int | None = None) -> list[int]:
+        """The processes of ``rank``'s column (default: this process's), in
+        time order: its time neighbours, whose rows together are the mesh's
+        rows, each once."""
+        rank = self.rank if rank is None else rank
+        j = self._cells(rank)[1][0]
+        return list(dict.fromkeys(row[j] for row in self.ranks))
+
+    def row_ranks(self, rank: int | None = None) -> list[int]:
+        """The processes of ``rank``'s time row (default: this process's),
+        in column order: those that split a bucket's channels with it."""
+        rank = self.rank if rank is None else rank
+        return list(dict.fromkeys(self.ranks[self._cells(rank)[0][0]]))
+
+    def partition(self, axis: str) -> list[list[int]]:
+        """Every process's column (``TIME_AXIS``: the groups of the time
+        exchanges) or row (``CHAN_AXIS``: the groups of the channel
+        exchange), each once, in order of their first process: the same
+        list in every process."""
+        ranks = sorted({q for row in self.ranks for q in row})
+        of = self.column_ranks if axis == TIME_AXIS else self.row_ranks
+        return [list(g) for g in dict.fromkeys(tuple(of(r)) for r in ranks)]
+
+    def own(self, i: int) -> list[tuple[int, torch.device]]:
+        """This process's devices in time row ``i``, each with its chan
+        position."""
+        return [(j, d) for j, (d, q) in enumerate(zip(self.devices[i], self.ranks[i]))
+                if q == self.rank]
 
     def local(self) -> list[torch.device]:
         """The distinct devices of this process's shards in mesh order, the
         home device first: a card that holds several shards is listed once
         (``dist.meshgraph`` captures one graph per phase and card)."""
-        return list(dict.fromkeys(d for i in self.rows() for d in self.devices[i]))
+        return list(dict.fromkeys(d for i in self.rows() for _, d in self.own(i)))
 
     @property
     def home(self) -> torch.device:
-        """The device that holds this process's state and outputs: that of
-        its first time shard, channel range 0."""
-        return self.devices[self.rows()[0]][0]
+        """The device that holds this process's state and outputs: its own
+        first device (first time row, first of its chan positions)."""
+        return self.own(self.rows()[0])[0][1]
 
     @property
     def multiprocess(self) -> bool:

@@ -13,11 +13,13 @@ processes.  Its ceiling is the balance of the group costs
 
 **global**: every process runs the FULL plan over ONE ``(time, chan)`` mesh
 over every process's devices (:func:`global_mesh`).  A process computes the
-time shards of its own devices; the halos at a process boundary, the DC
-totals, the last shard's tail and the group outputs cross processes
-(:class:`ProcessSpan`), so every process holds the whole state and every
-output.  Egress stays per process: :func:`egress_owner` gives each group's
-topics to one process.
+time shards of its own devices' rows; the halos at a process boundary, the
+DC totals, the last shard's tail and the group outputs cross between the
+processes of a time column, and where a time row spans processes each
+computes only its own channel ranges of a split bucket and the others
+cross between the processes of the row (:class:`ProcessSpan`), so every
+process holds the whole state and every output.  Egress stays per
+process: :func:`egress_owner` gives each group's topics to one process.
 
 Transport: the process group is gloo (TCP on the host network, the JAX
 package's DCN).  A global mesh's exchanges take one of two transports, a
@@ -76,8 +78,9 @@ END_GRACE_S = 20
 #: Seconds :func:`shutdown` waits for the process group's teardown
 SHUTDOWN_S = 30
 
-#: The NCCL group of the exchanges, made once per process group
-_groups: dict[str, object] = {}
+#: The groups of the exchanges, made once per process group: (backend,
+#: ranks) -> group
+_groups: dict[tuple[str, tuple[int, ...]], object] = {}
 
 
 def _dist():
@@ -117,7 +120,8 @@ def shutdown() -> None:
     own, waited for at most :data:`SHUTDOWN_S`; past that it is left to the
     process's end, with a word on stderr."""
     dist = _dist()
-    nccl = _groups.pop("nccl", None) is not None
+    nccl = any(backend == "nccl" for backend, _ in _groups)
+    _groups.clear()
     if not dist.is_initialized():
         return
     if not nccl:
@@ -199,12 +203,15 @@ def card_id(device) -> str | None:
 
 
 def global_mesh(n_chan: int = 1, devices=None):
-    """One ``(time, chan)`` mesh over EVERY process's devices, in process
-    order: with N processes of D local devices, time = N*D/n_chan.  Each
+    """One ``(time, chan)`` mesh over EVERY process's devices, laid out as
+    the JAX package's: process order, rows of ``n_chan`` consecutive
+    devices; with N processes of D local devices, time = N*D/n_chan.  Each
     process passes its own ``devices`` (default: its cards); every process
-    needs the same count, a multiple of ``n_chan``, so that each time row
-    lies on one process.  Each device's physical identity (:func:`card_id`)
-    is gathered with it, for :func:`exchange_backend`."""
+    needs the same count.  Where D is a multiple of ``n_chan`` each time row
+    lies on one process; where it divides ``n_chan`` a row spans ``n_chan /
+    D`` processes, which split each bucket's channels (:class:`~.mesh.Mesh`
+    refuses a layout that is neither).  Each device's physical identity
+    (:func:`card_id`) is gathered with it, for :func:`exchange_backend`."""
     from .mesh import Mesh, local_devices
 
     devices = [torch.device(d) for d in (devices if devices is not None else local_devices())]
@@ -217,11 +224,9 @@ def global_mesh(n_chan: int = 1, devices=None):
     total = sum(len(p) for p in per_proc)
     if total % n_chan:
         raise ValueError(f"{total} global devices not divisible by n_chan={n_chan}")
-    if len({len(p) for p in per_proc}) != 1 or len(devices) % n_chan:
+    if len({len(p) for p in per_proc}) != 1:
         raise ValueError(
-            f"every process needs the same number of devices, a multiple of n_chan={n_chan}: "
-            f"{[len(p) for p in per_proc]}"
-        )
+            f"every process needs the same number of devices: {[len(p) for p in per_proc]}")
     flat = [(r, d) for r, p in enumerate(per_proc) for d in p]
     rows = [flat[i:i + n_chan] for i in range(0, total, n_chan)]
     return Mesh([[d for _, (d, _) in row] for row in rows], [[r for r, _ in row] for row in rows],
@@ -273,39 +278,66 @@ def _give_up(group) -> None:
     faulthandler.dump_traceback_later(END_GRACE_S, exit=True)
 
 
-def _nccl_group():
-    """The NCCL group over every process of the process group, made once:
-    every process makes it at its first collective span, in one order."""
-    if "nccl" not in _groups:
-        _groups["nccl"] = _dist().new_group(
-            backend="nccl", timeout=datetime.timedelta(seconds=TIMEOUT_S))
-    return _groups["nccl"]
+def _exchange_groups(parts: list[list[int]], backend: str, world: list[int]) -> dict:
+    """The groups of one axis's exchanges (``parts``: the processes of each
+    column or each row, :meth:`~.mesh.Mesh.partition`), made once per
+    process group: ranks tuple -> group.  ``torch.distributed.new_group``
+    must be called by every process for every group in one order, so each
+    process makes all of them, those it is not in too.  A group of one
+    process exchanges nothing and gets none; a gloo group of every process
+    is the default group (None); NCCL gets groups of its own, the world's
+    too."""
+    out = {}
+    for ranks in parts:
+        key = (backend, tuple(ranks))
+        if len(ranks) < 2 or (backend == "gloo" and sorted(ranks) == world):
+            out[key[1]] = None
+            continue
+        if key not in _groups:
+            _groups[key] = _dist().new_group(
+                ranks=None if sorted(ranks) == world else list(ranks), backend=backend,
+                timeout=datetime.timedelta(seconds=TIMEOUT_S))
+        out[key[1]] = _groups[key]
+    return out
 
 
 class ProcessSpan:
     """The time shards ``[lo, hi)`` of ``n`` that this process computes in a
     mesh spanning processes, and the exchanges that cross its boundaries.
 
+    Two groups of processes exchange (:class:`~.mesh.Mesh`): this process's
+    **column**, its time neighbours, whose rows together are the mesh's
+    rows once each (every process where each owns whole rows), and its
+    **row**, the processes that split a time row's chan positions with it
+    (only itself where it owns whole rows).  :attr:`time` says whether the
+    column holds another process: where it does not, this process computes
+    every time shard and the time exchanges are not made.
+
     Every exchange goes through :attr:`exchange`, ``exchange(kind, v,
-    device)``: ``"halo"`` gives the previous process's ``v`` (zeros on the
-    process of global shard 0), ``"last"`` the ``v`` of the process that
-    owns the last shard, ``"gather"`` every process's ``v [k, ...]``
-    concatenated in process order; the result lies on ``device``.  The
-    default, :meth:`eager`, runs eagerly; ``dist.meshgraph`` swaps in one
-    that runs the exchanges inside the CUDA graphs of a step, or between
-    them.  Both move the data through buffers made once (:meth:`buffers`)
-    and run the call of the exchange on them (:meth:`communicate`).
+    device)``.  Among the column: ``"halo"`` gives the previous process's
+    ``v`` (zeros on the process of global shard 0), ``"last"`` the ``v`` of
+    the process that owns the last shard, ``"gather"`` every process's ``v
+    [k, ...]`` concatenated in time order.  Among the row: ``"chan"`` every
+    process's ``v [k, ...]`` concatenated in column order.  The result lies
+    on ``device``.  The default, :meth:`eager`, runs eagerly;
+    ``dist.meshgraph`` swaps in one that runs the exchanges inside the CUDA
+    graphs of a step, or between them.  Both move the data through buffers
+    made once (:meth:`buffers`) and run the call of the exchange on them
+    (:meth:`communicate`).
 
     ``transport``: ``"collective"`` (the default where
     :func:`exchange_backend` gives NCCL) runs the collectives on buffers on
-    the home card, the one card the NCCL group binds in each process (with
+    the home card, the one card the NCCL groups bind in each process (with
     two cards a process, the other card's data reaches it through the
-    process's own transfers: one communicator a process, whichever of its
-    cards a shard is on); on CPU tensors the same calls run on gloo, as the
-    CPU tests run them.  ``"staged"`` (the default otherwise) runs gloo on
-    pinned host buffers.  :attr:`backend` names the library that moves the
-    data.  Nothing falls back: a failed NCCL call, or a group that cannot
-    form, raises.
+    process's own transfers: one communicator a group and process,
+    whichever of its cards a shard is on); on CPU tensors the same calls
+    run on gloo, as the CPU tests run them.  ``"staged"`` (the default
+    otherwise) runs gloo on pinned host buffers.  :attr:`backend` names the
+    library that moves the data; :attr:`group` and :attr:`row_group` are
+    the groups of the column's and the row's exchanges (None: the default
+    group of every process, or no group where the column or row is this
+    process alone).  Nothing falls back: a failed NCCL call, or a group
+    that cannot form, raises.
 
     Every process makes the same exchanges in the same order: gloo pairs
     them by order on the host, NCCL by launch order on the card.  A peer
@@ -314,14 +346,19 @@ class ProcessSpan:
     for it forever, so a replay ends with :meth:`wait`."""
 
     def __init__(self, mesh, transport: str | None = None):
+        from .mesh import CHAN_AXIS, TIME_AXIS
+
         rows = mesh.rows()
         self.lo, self.hi, self.n = rows[0], rows[-1] + 1, mesh.shape["time"]
         self.rank = mesh.rank
-        self.prev = mesh.ranks[self.lo - 1][0] if self.lo > 0 else None
-        self.next = mesh.ranks[self.hi][0] if self.hi < self.n else None
-        self.last = mesh.ranks[-1][0]
+        j = mesh.columns()[0]
+        self.prev = mesh.ranks[self.lo - 1][j] if self.lo > 0 else None
+        self.next = mesh.ranks[self.hi][j] if self.hi < self.n else None
+        self.last = mesh.ranks[-1][j]
         ranks = sorted({r for row in mesh.ranks for r in row})
-        self.world = len(ranks)
+        self.column, self.row = mesh.column_ranks(), mesh.row_ranks()
+        self.world = len(self.column)
+        self.time = self.world > 1
         self.home = mesh.home
         if transport is None:
             ids = [[c for row, rr in zip(mesh.ids, mesh.ranks) for c, q in zip(row, rr) if q == r]
@@ -331,7 +368,12 @@ class ProcessSpan:
             raise ValueError(f"unknown transport {transport!r}")
         self.transport = transport
         self.backend = "nccl" if transport == "collective" and self.home.type == "cuda" else "gloo"
-        self.group = _nccl_group() if self.backend == "nccl" else None
+        # every process makes every group of both axes, in one order
+        groups = {TIME_AXIS: None, CHAN_AXIS: None}
+        for axis in groups:
+            made = _exchange_groups(mesh.partition(axis), self.backend, ranks)
+            groups[axis] = made[tuple(self.column if axis == TIME_AXIS else self.row)]
+        self.group, self.row_group = groups[TIME_AXIS], groups[CHAN_AXIS]
         self.exchange = self.eager
         self._bufs: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
 
@@ -345,8 +387,8 @@ class ProcessSpan:
         send = torch.empty(v.shape, dtype=v.dtype, **where)
         if kind == "last":
             return send, send
-        shape = (self.world * v.shape[0], *v.shape[1:]) if kind == "gather" else v.shape
-        return send, torch.zeros(shape, dtype=v.dtype, **where)
+        n = {"gather": self.world, "chan": len(self.row)}.get(kind, 1)
+        return send, torch.zeros((n * v.shape[0], *v.shape[1:]), dtype=v.dtype, **where)
 
     def communicate(self, kind: str, send: torch.Tensor, recv: torch.Tensor) -> None:
         """The call of one exchange, from ``send`` into ``recv``: gloo on
@@ -355,18 +397,21 @@ class ProcessSpan:
             self.collective(kind, send, recv)
             return
         dist = _dist()
+        g = self.group
         if kind == "halo":
             reqs = []
             if self.next is not None:
-                reqs.append(dist.isend(send, self.next))
+                reqs.append(dist.isend(send, self.next, group=g))
             if self.prev is not None:
-                reqs.append(dist.irecv(recv, self.prev))
+                reqs.append(dist.irecv(recv, self.prev, group=g))
             for r in reqs:
                 r.wait()
         elif kind == "last":
-            dist.broadcast(send, self.last)
+            dist.broadcast(send, self.last, group=g)
         elif kind == "gather":
-            dist.all_gather(list(recv.chunk(self.world)), send)
+            dist.all_gather(list(recv.chunk(self.world)), send, group=g)
+        elif kind == "chan":
+            dist.all_gather(list(recv.chunk(len(self.row))), send, group=self.row_group)
         else:
             raise ValueError(f"unknown exchange {kind!r}")
 
@@ -374,9 +419,10 @@ class ProcessSpan:
         """The collective of one exchange on the buffers themselves: the
         halo a send to the next process and a receive from the previous one
         in one batch, ``"last"`` a broadcast from the last shard's process,
-        ``"gather"`` an all-gather into one tensor in process order.  On the
-        card each is enqueued on the current stream's order (inside a
-        capture, into its graph) and the host does not wait."""
+        ``"gather"`` (the column) and ``"chan"`` (the row) an all-gather
+        into one tensor.  On the card each is enqueued on the current
+        stream's order (inside a capture, into its graph) and the host does
+        not wait."""
         dist = _dist()
         g = self.group
         with torch.cuda.device(send.device) if send.is_cuda else contextlib.nullcontext():
@@ -392,6 +438,8 @@ class ProcessSpan:
                 dist.broadcast(send, self.last, group=g)
             elif kind == "gather":
                 dist.all_gather_into_tensor(recv, send, group=g)
+            elif kind == "chan":
+                dist.all_gather_into_tensor(recv, send, group=self.row_group)
             else:
                 raise ValueError(f"unknown exchange {kind!r}")
 
@@ -421,7 +469,9 @@ class ProcessSpan:
                f"process {self.rank} is gone; the NCCL group was aborted and the process "
                f"ends in {END_GRACE_S} s")
         print(msg, file=sys.stderr, flush=True)
-        _give_up(self.group)
+        for g in (self.group, self.row_group):
+            if g is not None:
+                _give_up(g)
         raise RuntimeError(msg)
 
 

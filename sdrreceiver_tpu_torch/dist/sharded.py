@@ -18,6 +18,12 @@ over the ``chan`` devices, and each range runs the single-device bucket
 step (``CompiledReceiver._bucket_step``) unchanged, on the stateful path
 (no bucket kernel runs under a mesh, as in the JAX package).  So taps, late
 /5 /6, overlap-save and IQ topics are the same code in both receivers.
+Where a time row spans processes (a global mesh of fewer devices a process
+than ``n_chan``), each process computes the time shards of its rows whole
+(the front repeated across the row, as the JAX ``shard_map`` repeats it
+over the chan axis) and only the channel ranges of its own devices; one
+``"chan"`` exchange a split bucket then gathers every range's new state
+and outputs from the processes of the row.
 
 State and outputs live on the home device in exactly the single-device
 layout: ``export_state`` / ``import_state``, the checkpoints and the burst
@@ -29,9 +35,11 @@ once per exchange for every shard together: the raw block out to the
 shards, the DC totals in and the starting means out, the halos (with the
 shard NCO phases), the input tail and the group outputs in, and per split
 bucket its channel ranges out and back.  Where the mesh spans processes,
-what crosses a process boundary (the halo into the process's first shard,
-the DC totals, the input tail, the group outputs and the last shard's
-cascade histories) is one call of ``ProcessSpan.exchange`` each: an NCCL
+what crosses a process boundary (among the processes of a time column: the
+halo into the process's first shard, the DC totals, the input tail, the
+group outputs and the last shard's cascade histories; among those of a time
+row: each split bucket's channel ranges) is one call of
+``ProcessSpan.exchange`` each: an NCCL
 collective on the home card's tensors where every process holds cards no
 other process holds, else a gloo call on host buffers (:attr:`exchange`
 says which).  The exchange names its destination device.  With two cards
@@ -94,17 +102,62 @@ def _refill(tree, leaves):
     return next(leaves)
 
 
+def _chan_items(new: dict, outs: dict, bk: str, topics: list[str]) -> list[torch.Tensor]:
+    """One channel range's results, each with the channel axis first: the
+    new state's leaves, the audio ``[c, t]`` and, where ``topics`` (the
+    range's subs in order) are tapped, their taps ``[c, 2, n]``."""
+    items = [v.movedim(_chan_dim(k), 0) for k, v in flatten(new, bk + "/")]
+    items.append(outs[f"pcm/{bk}"].reshape(len(topics), -1))
+    if f"tap/{topics[0]}" in outs:
+        items.append(torch.stack([outs[f"tap/{t}"] for t in topics]))
+    return items
+
+
+def _span_bytes(t: torch.Tensor, m: int) -> int:
+    """Bytes of ``t`` padded to ``m`` channels, rounded up to 8 so that
+    every item of a packed row starts aligned for its dtype."""
+    return -(-m * t[:1].numel() * t.element_size() // 8) * 8
+
+
+def _pack(items: list[torch.Tensor], m: int) -> torch.Tensor:
+    """``items`` (channel axis first) padded to ``m`` channels each, as one
+    row of bytes: every range of a bucket packs to one length."""
+    rows = []
+    for t in items:
+        if t.shape[0] < m:
+            t = torch.cat([t, t.new_zeros((m - t.shape[0], *t.shape[1:]))])
+        b = t.contiguous().view(-1).view(torch.uint8)
+        rows += [b, b.new_zeros(_span_bytes(t, m) - b.numel())]
+    return torch.cat(rows)
+
+
+def _unpack(rows: torch.Tensor, like: list[torch.Tensor], counts: list[int], m: int):
+    """The inverse of :func:`_pack` over every range (``rows [n, bytes]``,
+    ``counts`` the ranges' channels): each item of ``like`` (one range's,
+    for shapes and dtypes) over the whole bucket, channel axis first."""
+    out, at = [], 0
+    for t in like:
+        n = m * t[:1].numel() * t.element_size()
+        shape = (m, *t.shape[1:])
+        parts = [r[at:at + n].view(t.dtype).view(shape)[:c] for r, c in zip(rows, counts)]
+        out.append(torch.cat(parts))
+        at += _span_bytes(t, m)
+    return out
+
+
 class _ChanSlice:
     """Channels ``[lo, hi)`` of bucket ``bk`` on one ``chan`` device: the
     constants the single-device bucket step reads, sliced to the range, so
-    that step runs here unchanged."""
+    that step runs here unchanged.  ``tap_all``: tap every channel of the
+    range (a range whose results cross processes packs its taps whole)."""
 
     _bucket_step = CompiledReceiver._bucket_step
     _tap = CompiledReceiver._tap
 
-    def __init__(self, rx: CompiledReceiver, bk: str, lo: int, hi: int, device: torch.device):
+    def __init__(self, rx: CompiledReceiver, bk: str, lo: int, hi: int, device: torch.device,
+                 tap_all: tuple[str, ...] = ()):
         self.device = device
-        self.emit_taps = rx.emit_taps
+        self.emit_taps = tuple(rx.emit_taps) + tap_all
         self.tap_samples = rx.tap_samples
         self._bucket_mc: dict = {}
         self._c = {k: v[lo:hi].to(device) for k, v in rx._c.items() if k.startswith(bk + "/")}
@@ -158,20 +211,26 @@ class ShardedReceiver(CompiledReceiver):
             self._span = ProcessSpan(mesh)
         super().__init__(plan, block, device=mesh.home, **kwargs)
         # each bucket of at least n_chan channels: contiguous ranges over
-        # the chan devices of this process's first time row
+        # the chan positions of this process's first time row, each with the
+        # constants of its range on this process's device there (None: the
+        # range of another process of the row)
         self._chan_parts: dict[str, list] = {}
         if self.n_chan > 1:
-            devs = mesh.devices[self._rows[0]]
+            own = dict(mesh.own(self._rows[0]))
+            split = len(own) < self.n_chan
             for g in plan.groups:
                 for bi, b in enumerate(g.buckets):
                     if b.channels < self.n_chan:
                         continue
                     bk = f"g{g.index}/b{bi}"
+                    tap = split and any(s.topic in self.emit_taps for s in b.subs)
                     parts = []
-                    for dev, idx in zip(devs, np.array_split(np.arange(b.channels), self.n_chan)):
+                    for j, idx in enumerate(np.array_split(np.arange(b.channels), self.n_chan)):
                         lo, hi = int(idx[0]), int(idx[-1]) + 1
                         sub = dataclasses.replace(b, subs=b.subs[lo:hi])
-                        parts.append((lo, hi, sub, _ChanSlice(self, bk, lo, hi, dev)))
+                        taps = tuple(s.topic for s in sub.subs) if tap else ()
+                        parts.append((lo, hi, sub, None if j not in own else
+                                      _ChanSlice(self, bk, lo, hi, own[j], taps)))
                     self._chan_parts[bk] = parts
 
     @property
@@ -179,6 +238,14 @@ class ShardedReceiver(CompiledReceiver):
         """The library of the exchanges across processes, ``"nccl"`` or
         ``"gloo"``; None where the mesh lies in this process."""
         return None if self._span is None else self._span.backend
+
+    @property
+    def _tspan(self):
+        """The span of the time exchanges: None where this process computes
+        every time shard (a mesh in one process, or a time column of this
+        process alone)."""
+        span = self._span
+        return span if span is not None and span.time else None
 
     # --------------------------------------------------------- transfers
     @contextlib.contextmanager
@@ -206,7 +273,7 @@ class ShardedReceiver(CompiledReceiver):
 
     # ------------------------------------------------------- time shards
     def _shard_devices(self) -> list[tuple[int, torch.device]]:
-        return [(i, self.mesh.devices[i][0]) for i in self._rows]
+        return [(i, self.mesh.own(i)[0][1]) for i in self._rows]
 
     def _ingest(self, state: dict, raw: torch.Tensor):
         """This process's time shards of ``raw`` on their devices, planar,
@@ -219,21 +286,21 @@ class ShardedReceiver(CompiledReceiver):
               else ingest.f32_pairs_to_planar(r) for r in rs]
         if not self.plan.dc_correct:
             return state["dc"], xs
-        return halo.timeshard_dc_local(state["dc"], xs, span=self._span, move=self._move)
+        return halo.timeshard_dc_local(state["dc"], xs, span=self._tspan, move=self._move)
 
     def _input_tail(self, xs, n: int | None) -> torch.Tensor:
         t_local = self.block // self.n_time
         w = min(n, t_local) if n else t_local
         k = min(-(-n // t_local), self.n_time) if n else self.n_time
         tails = halo.gather([torch.stack((xr[-w:], xi[-w:])) for xr, xi in xs],
-                            self.device, self._span, self._move)
+                            self.device, self._tspan, self._move)
         return torch.cat(tails[-k:], dim=-1)[:, -n:] if n else torch.cat(tails, dim=-1)
 
     def _left_halos(self, state: dict, xs, p: int, phases: torch.Tensor):
         """The left neighbour's last ``p`` inputs (global shard 0's from the
         carried xtail) and ``phases`` on every shard, in one transfer."""
         head, srcs, devs = halo.halo_moves(
-            [torch.stack((xr[-p:], xi[-p:])) for xr, xi in xs], p, self._span,
+            [torch.stack((xr[-p:], xi[-p:])) for xr, xi in xs], p, self._tspan,
             first=state["xtail"][:, -p:],
         )
         shard_devs = [dev for _, dev in self._shard_devices()]
@@ -245,12 +312,12 @@ class ShardedReceiver(CompiledReceiver):
         """Per group, per-shard planar ``[C, t]`` pairs -> the whole block
         on the home device, every group in one transfer."""
         stacked = [[torch.stack(p) for p in ps] for ps in per_shard.values()]
-        if self._span is None:
+        if self._tspan is None:
             here = iter(halo.gather([t for ts in stacked for t in ts], self.device,
                                     move=self._move))
             gathered = [[next(here) for _ in ts] for ts in stacked]
         else:  # every process's shards; gloo gathers one shape at a time
-            gathered = [halo.gather(ts, self.device, self._span, self._move) for ts in stacked]
+            gathered = [halo.gather(ts, self.device, self._tspan, self._move) for ts in stacked]
         zs = {}
         for gi, parts in zip(per_shard, gathered):
             z = torch.cat(parts, dim=-1)
@@ -260,22 +327,25 @@ class ShardedReceiver(CompiledReceiver):
     def _stateful_group(self, gs: dict, xs):
         t_local = self.block // self.n_time
         nco_state, zs = halo.timeshard_mix_local(gs["nco"], xs, self.plan.fs, t_local,
-                                                 self._span, self._move)
+                                                 self._tspan, self._move)
         hists, zs = halo.timeshard_cascade_local(gs["cascade"], zs, self._hb1_shards,
-                                                 self._span, self._move)
+                                                 self._tspan, self._move)
         return nco_state, hists, zs
 
     # ------------------------------------------------------ chan ranges
     def _bucket_step(self, g, bi: int, bs: dict, z, outputs: dict, state: dict) -> dict:
-        """A bucket of at least ``n_chan`` channels: its channel ranges out
-        to the chan devices in one transfer, the single-device bucket step
-        on each, the outputs and new state back in one."""
+        """A bucket of at least ``n_chan`` channels: the channel ranges of
+        this process's devices out to them in one transfer, the
+        single-device bucket step on each, the outputs and new state back in
+        one; where the row spans processes, every range's results then in
+        one ``"chan"`` exchange."""
         bk = f"g{g.index}/b{bi}"
         parts = self._chan_parts.get(bk)
         if parts is None:
             return super()._bucket_step(g, bi, bs, z, outputs, state)
+        mine = [p for p in parts if p[3] is not None]
         srcs, devs, sub_trees = [], [], []
-        for lo, hi, _, part in parts:
+        for lo, hi, _, part in mine:
             sub_bs = _map_states(
                 lambda key, v: v[0].narrow(_chan_dim(key), lo, hi - lo), [bs], bk + "/"
             )
@@ -285,7 +355,7 @@ class ShardedReceiver(CompiledReceiver):
             devs += [part.device] * len(leaves)
         moved = iter(self._move(srcs, devs))
         results = []
-        for (_, _, sub, part), sub_bs in zip(parts, sub_trees):
+        for (_, _, sub, part), sub_bs in zip(mine, sub_trees):
             sub_g = dataclasses.replace(
                 g, buckets=tuple(sub if k == bi else b for k, b in enumerate(g.buckets))
             )
@@ -297,13 +367,42 @@ class ShardedReceiver(CompiledReceiver):
         back = [v for new, outs in results
                 for v in [t for _, t in flatten(new)] + list(outs.values())]
         home = iter(self._move(back, [self.device] * len(back)))
+        homed = [(_refill(new, home), {k: next(home) for k in outs}) for new, outs in results]
+        if len(mine) < len(parts):
+            return self._chan_exchange(bk, parts, homed, outputs)
         new_parts, pcm = [], []
-        for new, outs in results:
-            new_parts.append(_refill(new, home))
-            outs = {k: next(home) for k in outs}
+        for new, outs in homed:
+            new_parts.append(new)
             pcm.append(outs.pop(f"pcm/{bk}"))
             outputs.update(outs)
         outputs[f"pcm/{bk}"] = torch.cat(pcm)
         return _map_states(
             lambda key, vs: torch.cat(vs, dim=_chan_dim(key)), new_parts, bk + "/",
         )
+
+    def _chan_exchange(self, bk: str, parts, homed, outputs: dict) -> dict:
+        """Every range of a bucket split across the processes of a time
+        row, from this process's ranges' results on the home device
+        (``homed``): each range's new state, audio and taps packed into one
+        row of bytes, padded to the largest range (``all_gather`` needs one
+        length), one ``"chan"`` exchange of them in column order, the
+        padding cut off after it.  Returns the bucket's new state; adds its
+        outputs to ``outputs``."""
+        m = max(hi - lo for lo, hi, _, _ in parts)
+        topics = [[s.topic for s in sub.subs] for _, _, sub, _ in parts]
+        local = [ts for ts, p in zip(topics, parts) if p[3] is not None]
+        items = [_chan_items(new, outs, bk, ts) for (new, outs), ts in zip(homed, local)]
+        rows = self._span.exchange("chan", torch.stack([_pack(it, m) for it in items]),
+                                   self.device)
+        full = _unpack(rows, items[0], [hi - lo for lo, hi, _, _ in parts], m)
+        new, leaves = homed[0][0], iter(full)
+        new = _refill(new, (t.movedim(0, _chan_dim(k)) for (k, _), t
+                            in zip(flatten(new, bk + "/"), leaves)))
+        pcm = next(leaves)
+        taps = next(leaves, None)
+        if taps is not None:
+            for ci, t in enumerate(tp for ts in topics for tp in ts):
+                if t in self.emit_taps:
+                    outputs[f"tap/{t}"] = taps[ci]
+        outputs[f"pcm/{bk}"] = pcm.reshape(-1)
+        return new
