@@ -114,7 +114,11 @@ its result and failing the script (non-zero exit) if it fails:
      one gloo ``"chan"`` exchange a bucket): graphs bit-equal to eager, the
      union of the topics each process publishes bit-equal to the
      one-process 1x2 mesh, the per-shard ``mix_cascade`` site in each
-     process against its plain version (the kernels line's global 1x2 row)
+     process against its plain version (the kernels line's global 1x2 row);
+     and the flagship on a global 2x3 over three processes each holding
+     the card twice (each process's devices end one time row or begin the
+     next; process 1 computes both time shards), checked the same way
+     against the one-process 2x3 (the kernels line's global 2x3 row)
 
 ``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes and
 phase 21's paths on distinct cards (a machine of four cards);
@@ -129,7 +133,14 @@ global 4x1 of two cards a process and the flagship's global 2x2 of four
 processes (rows and columns both across processes); ``bench
 --coordinator --partition global --mesh 1x2`` and ``run`` over rtl_tcp on
 the global 1x2 (NCCL, ZMQ audio bit-equal to the one-process 1x2 over
-the same cards); and the capture failure on distinct cards.
+the same cards); the capture failure on distinct cards; and with three
+cards or more, each process one card held several times: the flagship's
+global 2x3 of three processes at 1,536,000 and 384,000, cband66's at
+384,000 and the flagship's global 3x2 of two processes at 384,000 (each
+checked as above), ``process-file --mesh 2x3 --partition global
+--num-processes 3`` (``proc_cli_layout``), and a peer of the 2x3 that
+leaves after two replays, which must end the other two with exit code 1
+within ``TIMEOUT_S + END_GRACE_S`` (``chip_smoke.py --peer-dies``).
 
 Phases 15-17 hold every per-shard mix-cascade site of every sharded
 receiver they build against its plain version; phase 18's processes run
@@ -2032,9 +2043,13 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str], plan_name: str = 
     launches = {k: path_launches(r) for k, r in rxs.items()}
     (entry,) = rxs["graph"]._graphs._entries.values()
     t = entry.body.transfers
+    span = rxs["graph"]._span
     per_replay = {"graphs": 0 if entry.graph is None else entry.graph.graphs,
                   "transfers": len(t.bufs), "exchanges": t.exchanges,
-                  "host_exchanges": len(t.hosts), "collectives": len(t.collectives)}
+                  "host_exchanges": len(t.hosts), "collectives": len(t.collectives),
+                  # a halo this process neither sends nor receives launches nothing
+                  "nccl_calls": sum(x.kind != "halo" or bool(span.to) or span.prev is not None
+                                    for x in t.collectives)}
     same = {k: bit_equal(got, o) and bit_equal(g_states, st)
             for k, (o, st) in runs.items() if k != "graph"}
     print(f"{what}: graph vs {' and '.join(same)} over {n} blocks, outputs {len(got[0])} keys "
@@ -2080,9 +2095,9 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str], plan_name: str = 
         fail(f"{what}: a replay runs {kinds['graph']['mix_cascade']:g} mix_cascade rows, "
              f"the other steps {[kinds[k]['mix_cascade'] for k in kinds]}, the wrappers "
              f"count {per_step:g}")
-    if nccl and (kinds["graph"]["nccl"] != per_replay["collectives"] or kinds["gloo"]["nccl"]):
+    if nccl and (kinds["graph"]["nccl"] != per_replay["nccl_calls"] or kinds["gloo"]["nccl"]):
         fail(f"{what}: a replay runs {kinds['graph']['nccl']:g} NCCL rows for "
-             f"{per_replay['collectives']} collectives (the gloo graphs "
+             f"{per_replay['nccl_calls']} collectives that launch (the gloo graphs "
              f"{kinds['gloo']['nccl']:g})")
     return {"block": block, "err": err, "ms": ms, "turns": turns, "idle": idle,
             "mem": mem, "exchange": exchange["graph"], "launches": launches["graph"],
@@ -2095,19 +2110,22 @@ def proc_graphs_case(mesh, plan, block: int, cards: list[str], plan_name: str = 
 
 def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False, n_chan: int = 1,
                       n_proc: int = 2, plan: str = "flagship",
-                      blocks: tuple[int, ...] = (BLOCK, LIVE_BLOCK)) -> list[dict]:
+                      blocks: tuple[int, ...] = (BLOCK, LIVE_BLOCK),
+                      n_cards: int | None = None) -> list[dict]:
     """21. The sharded receiver's step entries as CUDA graphs on a mesh
     across processes: ``n_proc`` processes (:func:`proc_graphs_child`) of
-    ``n_local`` cards each, all of them the one card, or (``distinct``)
-    each process its own cards, on a global mesh of ``n_chan`` columns;
+    ``n_local`` devices each, all of them the one card, or (``distinct``)
+    each process ``n_cards`` cards of its own (default ``n_local``; 1: its
+    card held ``n_local`` times), on a global mesh of ``n_chan`` columns;
     each fails on its own checks.  Where ``n_chan`` > 1 the union of the
     topics the processes publish is then held bit-equal to the
     one-process mesh of the same shape over the same cards (or the one
     card).  Each process's cases."""
     coord = f"127.0.0.1:{free_port()}"
     envs = None
+    n_cards = n_cards or n_local
     if distinct:
-        envs = [{"CUDA_VISIBLE_DEVICES": ",".join(str(n_local * i + j) for j in range(n_local))}
+        envs = [{"CUDA_VISIBLE_DEVICES": ",".join(str(n_cards * i + j) for j in range(n_cards))}
                 for i in range(n_proc)]
     shutil.rmtree(WORK / "procs", ignore_errors=True)
     t0 = time.perf_counter()
@@ -2125,23 +2143,25 @@ def phase_proc_graphs(card: str, n_local: int = 1, distinct: bool = False, n_cha
           f"start-up included) {card}")
     if n_chan > 1:
         out[0]["union_ms"] = {block: proc_union(plan, out[0]["mesh"], n_proc, n_local, distinct,
-                                                block, card) for block in blocks}
+                                                block, card, n_cards) for block in blocks}
     return out
 
 
 def proc_union(plan_name: str, shape: str, n_proc: int, n_local: int, distinct: bool,
-               block: int, card: str) -> dict:
+               block: int, card: str, n_cards: int) -> dict:
     """The union of the outputs whose topics each process of a global mesh
     publishes (:func:`proc_graphs_case` saved them) against the one-process
-    mesh of the same shape over the same cards (distinct: as many cards as
-    the processes held; else the one card), on the same blocks: bit-equal.
-    Also times that mesh and one device in turns; their ms."""
+    mesh of the same shape over the same cards (distinct: each position on
+    the card its process held there; else the one card), on the same
+    blocks: bit-equal.  Also times that mesh and one device in turns; their
+    ms."""
     from sdrreceiver_tpu_torch.dist import ShardedReceiver, make_mesh, multihost
     from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
 
     plan = proc_plan(plan_name)
     n_time, n_chan = map(int, shape.split("x"))
-    devs = ([torch.device("cuda", i) for i in range(n_proc * n_local)] if distinct
+    devs = ([torch.device("cuda", k // n_local * n_cards + k % n_local % n_cards)
+             for k in range(n_proc * n_local)] if distinct
             else [torch.device(DEVICE)] * (n_time * n_chan))
     blocks = torch.tensor(plan_stream(plan, 4, block, seed=21), device=devs[0])
     rx = ShardedReceiver(plan, make_mesh(n_time, n_chan, devs), block)
@@ -2597,6 +2617,10 @@ def main() -> None:
     phase_proc_graphs(card)
     # a time row across the two processes: each its own channel ranges
     row = [p["cases"][0] for p in phase_proc_graphs(card, n_chan=2, blocks=(LIVE_BLOCK,))]
+    # a process whose devices end one time row and begin the next: the
+    # global 2x3 of three processes, each holding the card twice
+    ends = [p["cases"][0] for p in phase_proc_graphs(card, n_local=2, n_chan=3, n_proc=3,
+                                                     blocks=(LIVE_BLOCK,))]
     if torch.cuda.device_count() >= 2:  # distinct cards: NCCL inside the graphs
         procs_on_cards(card)
     phase_proc_cli(dev, card)
@@ -2676,12 +2700,171 @@ def main() -> None:
          "max_abs_err": max(c["err"] for c in row),
          "ms": row[0]["site_ms"], "plain_ms": row[0]["site_plain_ms"],
          **timing_keys(devt, [f"mix_cascade flagship block {LIVE_BLOCK} front"])},
+        {"name": f"mix_cascade (per-shard merged front, flagship global 2x3 over three "
+                 f"processes holding the card twice each, block {LIVE_BLOCK}: one site of "
+                 f"T={ends[0]['sites']['shard0/front']} a time shard, process 1 two)",
+         "route": "cuda", "source": "sdrreceiver_tpu_torch/csrc/mix_cascade.cu",
+         "replaces": "sdrreceiver_tpu/pallas/frontend.py:488",
+         "also_replaces": "sdrreceiver_tpu/pallas/frontend.py:672",
+         "launches": sum(sum(c["launches"].values()) for c in ends),
+         "max_abs_err": max(c["err"] for c in ends),
+         "ms": ends[0]["site_ms"], "plain_ms": ends[0]["site_plain_ms"],
+         **timing_keys(devt, [f"mix_cascade flagship mesh 2x1 block {LIVE_BLOCK} "
+                              f"shard0/front"])},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def peer_dies_child(argv: list[str]) -> int:
+    """``chip_smoke.py --peer-dies COORD PID``: one of the three processes
+    of a global 2x3 flagship mesh at 384,000, each holding its own card
+    twice (NCCL inside the graphs).  Process 2 leaves after two replays;
+    the others step on: their next replay's NCCL kernels wait for it until
+    ``multihost.TIMEOUT_S`` (30 s here), the group is aborted and the step
+    raises, which ends the process with exit code 1 (``END_GRACE_S``
+    later at the latest).  A survivor that steps through prints
+    ``stepped``."""
+    from sdrreceiver_tpu_torch.dist import ShardedReceiver, multihost
+
+    multihost.TIMEOUT_S = 30
+    mesh, plan = proc_mesh(argv[0], int(argv[1]), 2, n_chan=3, n_proc=3)
+    rx = ShardedReceiver(plan, mesh, LIVE_BLOCK)
+    print(f"exchange {rx.exchange}", flush=True)
+    blocks = torch.tensor(plan_stream(plan, 2, LIVE_BLOCK, seed=21), device=mesh.home)
+    st = rx.init_state()
+    last = time.monotonic()
+    try:
+        for k in range(2 if mesh.rank == 2 else 8):
+            st, _ = rx.step_u8(st, blocks[k % 2])
+            last = time.monotonic()
+            print(f"replay {k + 1}", flush=True)
+    except RuntimeError:
+        print(f"raised {time.monotonic() - last:.1f} s after its last replay", flush=True)
+        raise
+    if mesh.rank == 2:
+        print("leaving", flush=True)
+        return 0
+    print("stepped: a replay finished without its peer", flush=True)
+    return 0
+
+
+def phase_peer_dies(card: str) -> None:
+    """21 (three cards or more). A peer that dies mid-run on distinct
+    cards: the global 2x3 of three processes, process 2 leaving after two
+    replays; the other two must exit 1 within ``TIMEOUT_S`` (30 s) +
+    ``END_GRACE_S`` of their last replay, print no result, and say the
+    NCCL group was aborted."""
+    from sdrreceiver_tpu_torch.dist import multihost
+
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    res = processes([["--peer-dies", coord, i] for i in range(3)], timeout=240,
+                    envs=[{"CUDA_VISIBLE_DEVICES": str(i)} for i in range(3)])
+    secs = time.perf_counter() - t0
+    limit = 30 + multihost.END_GRACE_S
+    print(f"a peer that dies mid-run, global 2x3 of three processes a card each (nccl): exit "
+          f"codes {[rc for rc, _, _ in res]} after {secs:.1f} s {card}")
+    waited = []
+    for i, (rc, so, se) in enumerate(res):
+        errs = [line[:200] for line in se.splitlines() if "rror" in line][-3:]
+        print(f"  process {i}: {so.strip().splitlines()[-2:]} {errs}")
+        raised = [line for line in so.splitlines() if line.startswith("raised ")]
+        waited += [float(line.split()[1]) for line in raised]
+    (rc2, so2, _), survivors = res[2], res[:2]
+    if rc2 != 0 or "leaving" not in so2 or "exchange nccl" not in so2:
+        fail("the peer that leaves did not step twice through NCCL and leave")
+    if any(rc != 1 or "stepped" in so or "NCCL group was aborted" not in se
+           for rc, so, se in survivors) or len(waited) != 2 or max(waited) > limit:
+        fail(f"a peer gone mid-run did not end both survivors with exit code 1 within "
+             f"{limit} s of their last replay (waited {waited})")
+
+
+def proc_cli_layout(card: str) -> dict:
+    """21 (three cards or more). ``process-file --mesh 2x3 --partition
+    global --num-processes 3``, each process its own card held twice
+    (NCCL): every process exits 0 through graphs and NCCL, launches its
+    kernels once a block, writes the topics it owns, and the union is
+    within 1 LSB of the one-process ``process-file --mesh 2x3`` on the
+    same recording (bit-equality printed).  Process 0's summary."""
+    d = WORK / "proc_cli_layout"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    ini = d / "flag.ini"
+    ini.write_text(flagship_ini(free_port()))
+    raw, _ = flagship_stream(4, LIVE_BLOCK, seed=21)
+    raw.tofile(d / "flag.u8")
+    coord = f"127.0.0.1:{free_port()}"
+    argv = ["process-file", "-s", ini, "--iq", d / "flag.u8", "--device", DEVICE,
+            "--block", LIVE_BLOCK, "--mesh", "2x3"]
+    t0 = time.perf_counter()
+    res = processes([["--cli", *argv, "--out", d / f"p{i}", "--partition", "global",
+                      "--coordinator", coord, "--num-processes", 3, "--process-id", i]
+                     for i in range(3)], envs=[{"CUDA_VISIBLE_DEVICES": str(i)} for i in range(3)])
+    secs = time.perf_counter() - t0
+    what = "process-file --mesh 2x3 --partition global --num-processes 3 (a card each)"
+    sums, parts = [], []
+    for i, (rc, so, se) in enumerate(res):
+        if rc:
+            fail(f"{what}: process {i} exited {rc}: {se[-2000:]}")
+        *_, summary, last = so.strip().splitlines()
+        summary, (launches,) = json.loads(summary), json.loads(last)["launches"]
+        mh = summary["multihost"]
+        parts.append(read_audio(d / f"p{i}"))
+        print(f"{what}: process {i} exchange {summary.get('exchange')}, cuda_graphs "
+              f"{summary['cuda_graphs']}, launches {launches} over {summary['blocks']} blocks, "
+              f"report n_hosts {mh['report']['n_hosts']} n_time {mh['report']['n_time']}, "
+              f"topics {sorted(parts[i])} {card}")
+        if summary.get("exchange") != "nccl" or not summary["cuda_graphs"] or not launches \
+                or any(n != summary["blocks"] for n in launches.values()) \
+                or set(parts[i]) != set(mh["local_topics"]) \
+                or (mh["report"]["n_hosts"], mh["report"]["n_time"]) != (3, 2):
+            fail(f"{what}: process {i} did not run its part through NCCL graphs")
+        sums.append(summary)
+    union = {k: v for p in parts for k, v in p.items()}
+    if sum(map(len, parts)) != len(union):
+        fail(f"{what}: a topic written twice")
+    cli(*argv, "--out", d / "one")
+    one = read_audio(d / "one")
+    same = union.keys() == one.keys() and all(np.array_equal(union[k], one[k]) for k in one)
+    print(f"{what}: {secs:.1f} s for the three, start-up included; the union of "
+          f"{len(union)} topics vs the one-process --mesh 2x3 bit-equal: {same} {card}")
+    audio_diff(union, one, f"{what} union vs the one-process 2x3")
+    return sums[0]["multihost"]
+
+
+def procs_any_layout(card: str) -> None:
+    """21 (three cards or more). Global meshes whose processes' devices end
+    one time row and begin the next, each process its own card held
+    several times (NCCL inside the graphs): the flagship global 2x3 of
+    three processes at 1,536,000 and 384,000 and cband66's at 384,000, the
+    flagship global 3x2 of two processes at 384,000; then the CLI's 2x3
+    and a peer that dies mid-run."""
+    flag = phase_proc_graphs(card, n_local=2, distinct=True, n_cards=1, n_chan=3, n_proc=3)
+    cband = phase_proc_graphs(card, n_local=2, distinct=True, n_cards=1, n_chan=3, n_proc=3,
+                              plan="cband", blocks=(LIVE_BLOCK,))
+    three = phase_proc_graphs(card, n_local=3, distinct=True, n_cards=1, n_chan=2, n_proc=2,
+                              blocks=(LIVE_BLOCK,))
+    for name, procs in (("flagship global 2x3", flag), ("cband66 global 2x3", cband),
+                        ("flagship global 3x2", three)):
+        for k, c in enumerate(procs[0]["cases"]):
+            cs = [p["cases"][k] for p in procs]
+            print(f"{name} block {c['block']} (NCCL graphs, per process, each in its own "
+                  f"turns): step ms {[round(x['ms']['graph'], 4) for x in cs]}, eager "
+                  f"{[round(x['ms']['eager'], 4) for x in cs]}, gloo graphs "
+                  f"{[round(x['ms']['gloo'], 4) for x in cs]}; device us "
+                  f"{[round(x['device_us']['graph'], 1) for x in cs]}, idle share "
+                  f"{[round(x['idle']['graph'], 4) for x in cs]}, peak MiB "
+                  f"{[round(x['mem']['graph'], 1) for x in cs]}, NCCL rows a replay "
+                  f"{[x['kinds']['graph']['nccl'] for x in cs]}, graphs a replay "
+                  f"{[x['graphs'] for x in cs]}; one-process mesh "
+                  f"{procs[0]['union_ms'][c['block']]['mesh']:.4f} ms, one device "
+                  f"{procs[0]['union_ms'][c['block']]['one']:.4f} ms {card}")
+    proc_cli_layout(card)
+    phase_peer_dies(card)
 
 
 def cards_header(n: int) -> tuple[list[str], str]:
@@ -2710,8 +2893,10 @@ def procs_on_cards(card: str) -> None:
     four cards, the global 4x1 with two cards a process and the flagship's
     global 2x2 of four processes (rows and columns both across
     processes); ``bench`` and ``run`` on the global 1x2
-    (:func:`proc_cli_cards`); and the capture failure in one of two
-    processes on distinct cards."""
+    (:func:`proc_cli_cards`); the capture failure in one of two
+    processes on distinct cards; and with three cards or more the layouts
+    whose processes end one time row and begin the next
+    (:func:`procs_any_layout`)."""
     two = phase_proc_graphs(card, n_local=1, distinct=True)
     row = phase_proc_graphs(card, distinct=True, n_chan=2)
     phase_proc_graphs(card, distinct=True, n_chan=2, plan="cband", blocks=(LIVE_BLOCK,))
@@ -2729,6 +2914,8 @@ def procs_on_cards(card: str) -> None:
         phase_proc_graphs(card, distinct=True, n_chan=2, n_proc=4)
     proc_cli_cards(card)
     phase_capture_failure_procs(card, distinct=True)
+    if torch.cuda.device_count() >= 3:
+        procs_any_layout(card)
 
 
 def last_lines(smi: list[str]) -> None:
@@ -2751,7 +2938,8 @@ def four_cards() -> None:
 
 if __name__ == "__main__":
     modes = {"--procgraphs": proc_graphs_child,
-             "--capture-failure-procs": capture_failure_procs_child}
+             "--capture-failure-procs": capture_failure_procs_child,
+             "--peer-dies": peer_dies_child}
     if os.environ.get("SMOKE_DUMP_S"):  # a child of processes(): its stacks before a kill
         import faulthandler
 

@@ -57,8 +57,8 @@ FP64_FLOPS = 67e12
 DC_CASES = [("u8", 1_536_000), ("u8", 384_000), ("f32", 480_000), ("u8", 4224), ("u8", 72_000)]
 MC_PLANS = [("flagship", 1_536_000), ("flagship", 384_000), ("altrate", 480_000)]
 # the sharded receiver's per-shard sites: a plan, its block and a mesh shape
-# over four shards of one card
-MESH_PLANS = [("flagship", 1_536_000, (4, 1))]
+# over the shards of one card (2x1 at 384,000: a global 2x3's shard site)
+MESH_PLANS = [("flagship", 1_536_000, (4, 1)), ("flagship", 384_000, (2, 1))]
 
 
 def dc_bound(kind: str, t_len: int) -> tuple[float, str]:

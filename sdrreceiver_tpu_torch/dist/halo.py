@@ -22,11 +22,12 @@ that cross a process boundary, each one call of its ``exchange`` hook
 (which ``dist.meshgraph`` swaps, as it swaps ``move``): the halo into this
 process's first shard, the last shard's cascade history, the gathers,
 each an NCCL collective or a gloo call (``ProcessSpan.transport``) among
-the processes of this process's time column; ``span=None`` means this
-process computes every shard (one process, or a column of this process
-alone: where a time row spans processes, each computes its rows whole, as
-the JAX ``shard_map`` repeats the front over the chan axis, and nothing
-of the front crosses between them).
+the processes of this process's time group, each shard published by one
+of them (``Mesh.publishers``); ``span=None`` means this process computes
+every shard (one process, or a time group of this process alone: where
+each process holds a run of columns of one time row, each computes its
+row whole, as the JAX ``shard_map`` repeats the front over the chan axis,
+and nothing of the front crosses between them).
 
   * FIR/cascade halos: right shift of each shard's tail
     (:func:`right_halo`); shard 0 gets zeros, where the carried history goes
@@ -72,9 +73,13 @@ def halo_moves(xs: list[torch.Tensor], width: int, span=None, first=None):
     """The transfers of :func:`right_halo`, for a caller that makes them
     in one ``move`` with its own: ``(head, srcs, devices)``.  The halos are
     ``[head] + move(srcs, devices)``, or ``move(srcs, devices)`` where
-    ``head`` is None (``first`` moved to global shard 0)."""
+    ``head`` is None (``first`` moved to global shard 0).  Across
+    processes ``head`` comes from the publisher of the shard before this
+    process's first, and this process sends the tail of its shard
+    ``span.halo_k`` (mostly its last) to the processes whose first shard
+    follows that one."""
     tails = [x[..., -width:] for x in xs]
-    head = None if span is None else span.exchange("halo", tails[-1], xs[0].device)
+    head = None if span is None else span.exchange("halo", tails[span.halo_k], xs[0].device)
     srcs, devs = tails[:-1], [x.device for x in xs[1:]]
     if first is not None and _first(span) == 0:
         return None, [first] + srcs, [xs[0].device] + devs
@@ -90,12 +95,17 @@ def right_halo(xs: list[torch.Tensor], width: int, span=None) -> list[torch.Tens
 
 
 def gather(vs: list[torch.Tensor], device, span=None, move: Move = to_devices) -> list[torch.Tensor]:
-    """Every shard's value, in time order, on ``device`` (an all-gather)."""
+    """Every shard's value, in time order, on ``device`` (an all-gather:
+    across processes, of the values of the shards this process publishes,
+    padded with zeros to ``span.pad``)."""
     device = torch.device(device)
-    here = move(vs, [device] * len(vs))
     if span is None:
-        return here
-    return list(span.exchange("gather", torch.stack(here), device))
+        return move(vs, [device] * len(vs))
+    mine = [vs[k] for k in span.published]
+    here = move(mine, [device] * len(mine)) if mine else []
+    pad = [torch.zeros(vs[0].shape, dtype=vs[0].dtype, device=device)] * (span.pad - len(here))
+    rows = span.exchange("gather", torch.stack(here + pad), device)
+    return [rows[s] for s in span.slots]
 
 
 def timeshard_cascade_local(

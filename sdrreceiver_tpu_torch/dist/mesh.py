@@ -14,17 +14,22 @@ processes (``dist.multihost.global_mesh``) records each entry's owning
 process and physical identity, and the shards of other processes are
 computed there.
 
-Across processes each process's devices form one rectangle of the grid:
-whole time rows, or one run of columns of one row (a time row that spans
-processes, as the JAX package's ``global_mesh`` lays one out when a process
-holds fewer devices than ``n_chan``).  A process computes the time shards
-of every row it holds a device in; the processes of its **column**
-(:meth:`Mesh.column_ranks`, its time neighbours) exchange the time halos and
-gathers, and those of its **row** (:meth:`Mesh.row_ranks`) the channel
-ranges of the split buckets.
+Across processes each process's devices are one contiguous run of the
+grid's positions in mesh order (rows of ``n_chan``), as the JAX package's
+``global_mesh`` lays them out: whole time rows, a run of columns of one
+row, or a run that ends one row and begins the next.  A process computes
+the time shards of every row it holds a device in.  The processes linked
+by a shared column form its **time group** (:meth:`Mesh.column_ranks`),
+whose exchanges carry the time halos and gathers, each shard published by
+one of them (:meth:`Mesh.publishers`); those linked by a shared row form
+its **channel group** (:meth:`Mesh.row_ranks`), which splits each bucket's
+channel ranges, each computed by one of them (:meth:`Mesh.chan_owners`).
+Every process derives the same tables from ``ranks`` alone.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -56,7 +61,7 @@ class Mesh:
                     else [[None] * n_chan for _ in range(n_time)])
         self.shape = {TIME_AXIS: n_time, CHAN_AXIS: n_chan}
         for r in sorted({q for row in self.ranks for q in row} | {rank}):
-            self._check_rectangle(r)
+            self._check_run(r)
 
     def _cells(self, rank: int) -> tuple[list[int], list[int]]:
         """The rows and the columns that hold a device of process ``rank``."""
@@ -64,50 +69,90 @@ class Mesh:
         cols = sorted({j for row in self.ranks for j, q in enumerate(row) if q == rank})
         return rows, cols
 
-    def _check_rectangle(self, rank: int) -> None:
-        rows, cols = self._cells(rank)
-        if not rows or rows != list(range(rows[0], rows[-1] + 1)):
-            raise ValueError(f"process {rank} must own a contiguous run of time rows")
-        n_cells = sum(q == rank for row in self.ranks for q in row)
-        if n_cells != len(rows) * len(cols) or (
-                len(rows) > 1 and len(cols) != self.shape[CHAN_AXIS]):
+    def _check_run(self, rank: int) -> None:
+        n_chan = self.shape[CHAN_AXIS]
+        flat = [i * n_chan + j for i, row in enumerate(self.ranks)
+                for j, q in enumerate(row) if q == rank]
+        if not flat or flat != list(range(flat[0], flat[0] + len(flat))):
             raise ValueError(
-                f"process {rank}'s devices must cover whole time rows or one run of columns "
-                f"of one row (a process's device count a multiple or a divisor of n_chan="
-                f"{self.shape[CHAN_AXIS]})")
+                f"process {rank}'s devices must be one contiguous run of the mesh's positions "
+                f"(rows of n_chan={n_chan} in process order, as global_mesh lays them out)")
 
-    def rows(self) -> list[int]:
-        """The time shards this process computes: every row it holds a
-        device in."""
-        return self._cells(self.rank)[0]
+    def rows(self, rank: int | None = None) -> list[int]:
+        """The time shards process ``rank`` (default: this one) computes:
+        every row it holds a device in."""
+        return self._cells(self.rank if rank is None else rank)[0]
 
     def columns(self) -> list[int]:
-        """The chan positions of this process's devices (the same in each of
-        its rows)."""
+        """The chan positions of this process's devices, over all its rows
+        (:meth:`own` gives them row by row)."""
         return self._cells(self.rank)[1]
 
     def column_ranks(self, rank: int | None = None) -> list[int]:
-        """The processes of ``rank``'s column (default: this process's), in
-        time order: its time neighbours, whose rows together are the mesh's
-        rows, each once."""
+        """The processes of ``rank``'s time group (default: this process's),
+        in rank order: those linked to it by a shared column, whose rows
+        together are every row of the mesh.  Where each process holds whole
+        rows it is every process; where each holds a run of columns of one
+        row, its column; where a process's devices end one row and begin
+        the next, every process."""
         rank = self.rank if rank is None else rank
-        j = self._cells(rank)[1][0]
-        return list(dict.fromkeys(row[j] for row in self.ranks))
+        return next(g for g in self.partition(TIME_AXIS) if rank in g)
 
     def row_ranks(self, rank: int | None = None) -> list[int]:
-        """The processes of ``rank``'s time row (default: this process's),
-        in column order: those that split a bucket's channels with it."""
+        """The processes of ``rank``'s channel group (default: this
+        process's), in rank order: those linked to it by a shared time row,
+        which split each bucket's channel ranges between them (only itself
+        where it holds whole rows)."""
         rank = self.rank if rank is None else rank
-        return list(dict.fromkeys(self.ranks[self._cells(rank)[0][0]]))
+        return next(g for g in self.partition(CHAN_AXIS) if rank in g)
 
     def partition(self, axis: str) -> list[list[int]]:
-        """Every process's column (``TIME_AXIS``: the groups of the time
-        exchanges) or row (``CHAN_AXIS``: the groups of the channel
-        exchange), each once, in order of their first process: the same
-        list in every process."""
-        ranks = sorted({q for row in self.ranks for q in row})
-        of = self.column_ranks if axis == TIME_AXIS else self.row_ranks
-        return [list(g) for g in dict.fromkeys(tuple(of(r)) for r in ranks)]
+        """Every time group (``TIME_AXIS``: the processes linked by sharing
+        a column, directly or through others; the groups of the time
+        exchanges) or channel group (``CHAN_AXIS``: linked by sharing a
+        row; the groups of the channel exchange), each sorted, in order of
+        their first process: the same list in every process."""
+        if axis == TIME_AXIS:
+            sets = [{row[j] for row in self.ranks} for j in range(self.shape[CHAN_AXIS])]
+        else:
+            sets = [set(row) for row in self.ranks]
+        groups: list[set] = []
+        for s in sets:
+            groups = [g for g in groups if not g & s] + [s.union(*(g for g in groups if g & s))]
+        return sorted(sorted(g) for g in groups)
+
+    def publishers(self, rank: int | None = None) -> list[int]:
+        """Per time row, the process of ``rank``'s time group that publishes
+        that time shard to the group's exchanges: the last of the row's
+        processes in the group.  So a process ending one row whose next row
+        begins with others sends them the halo of that row, and never the
+        halos of two rows."""
+        group = set(self.column_ranks(rank))
+        return [[q for q in row if q in group][-1] for row in self.ranks]
+
+    def chan_owners(self, rank: int | None = None) -> list[tuple[int, int]]:
+        """Per chan position ``j`` (a split bucket's ``j``-th channel range),
+        the process of ``rank``'s channel group that computes it and the
+        time row of its device there.  A process of ``D`` devices computes
+        the ranges of its first ``gcd(n_chan, D)`` devices in mesh order:
+        alone in its group (whole rows), every range on its first row's
+        devices; in a row that spans processes, its own positions; where
+        its devices end one row and begin the next, ranges that the
+        group's other processes do not hold first, so every range is
+        computed once in the group.  Raises where that cover fails (no
+        ``global_mesh`` layout)."""
+        group = self.row_ranks(rank)
+        n_chan = self.shape[CHAN_AXIS]
+        owners: dict[int, list[tuple[int, int]]] = {}
+        for q in group:
+            cells = [(i, j) for i, row in enumerate(self.ranks) for j, p in enumerate(row)
+                     if p == q]
+            for i, j in cells[:math.gcd(n_chan, len(cells))]:
+                owners.setdefault(j, []).append((q, i))
+        if sorted(owners) != list(range(n_chan)) or any(len(o) > 1 for o in owners.values()):
+            raise ValueError(f"the channel ranges of processes {group} do not cover each chan "
+                             f"position once")
+        return [owners[j][0] for j in range(n_chan)]
 
     def own(self, i: int) -> list[tuple[int, torch.device]]:
         """This process's devices in time row ``i``, each with its chan

@@ -15,10 +15,11 @@ cards is cut where data crosses devices:
   first run and reused by every later run in call order: a peer copy
   between two cards, a copy within one;
 * an **exchange** is one call of ``ProcessSpan.exchange`` where the mesh
-  spans processes (among the processes of a time column: the halo into
+  spans processes (among the processes of a time group: the halo into
   this process's first shard, the last shard's cascade history, the
   gathers of the DC totals, the input tail and each group's outputs; among
-  those of a time row: each split bucket's channel ranges, ``"chan"``).
+  those of a channel group: each split bucket's channel ranges,
+  ``"chan"``).
   Its buffers are made on the body's first run.
   Where the processes hold distinct cards (``ProcessSpan.transport ==
   "collective"``) it is an NCCL collective on static buffers on the home

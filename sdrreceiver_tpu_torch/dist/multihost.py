@@ -15,10 +15,10 @@ processes.  Its ceiling is the balance of the group costs
 over every process's devices (:func:`global_mesh`).  A process computes the
 time shards of its own devices' rows; the halos at a process boundary, the
 DC totals, the last shard's tail and the group outputs cross between the
-processes of a time column, and where a time row spans processes each
+processes of a time group, and where a time row spans processes each
 computes only its own channel ranges of a split bucket and the others
-cross between the processes of the row (:class:`ProcessSpan`), so every
-process holds the whole state and every output.  Egress stays per
+cross between the processes of its channel group (:class:`ProcessSpan`),
+so every process holds the whole state and every output.  Egress stays per
 process: :func:`egress_owner` gives each group's topics to one process.
 
 Transport: the process group is gloo (TCP on the host network, the JAX
@@ -207,11 +207,14 @@ def global_mesh(n_chan: int = 1, devices=None):
     the JAX package's: process order, rows of ``n_chan`` consecutive
     devices; with N processes of D local devices, time = N*D/n_chan.  Each
     process passes its own ``devices`` (default: its cards); every process
-    needs the same count.  Where D is a multiple of ``n_chan`` each time row
-    lies on one process; where it divides ``n_chan`` a row spans ``n_chan /
-    D`` processes, which split each bucket's channels (:class:`~.mesh.Mesh`
-    refuses a layout that is neither).  Each device's physical identity
-    (:func:`card_id`) is gathered with it, for :func:`exchange_backend`."""
+    needs the same count.  Process p holds the positions ``[p*D, (p+1)*D)``:
+    whole time rows where D is a multiple of ``n_chan``, a run of columns of
+    one row where D divides it, else a run that ends one row and begins the
+    next (2x3 over three processes of two: rows ``p0 p0 p1`` and ``p1 p2
+    p2``).  :class:`~.mesh.Mesh` derives from that who publishes each time
+    shard and who computes each channel range.  Each device's physical
+    identity (:func:`card_id`) is gathered with it, for
+    :func:`exchange_backend`."""
     from .mesh import Mesh, local_devices
 
     devices = [torch.device(d) for d in (devices if devices is not None else local_devices())]
@@ -280,7 +283,7 @@ def _give_up(group) -> None:
 
 def _exchange_groups(parts: list[list[int]], backend: str, world: list[int]) -> dict:
     """The groups of one axis's exchanges (``parts``: the processes of each
-    column or each row, :meth:`~.mesh.Mesh.partition`), made once per
+    time or channel group, :meth:`~.mesh.Mesh.partition`), made once per
     process group: ranks tuple -> group.  ``torch.distributed.new_group``
     must be called by every process for every group in one order, so each
     process makes all of them, those it is not in too.  A group of one
@@ -301,25 +304,48 @@ def _exchange_groups(parts: list[list[int]], backend: str, world: list[int]) -> 
     return out
 
 
+def _slots(owners: list[int], group: list[int]) -> tuple[int, list[int]]:
+    """An all-gather's layout where item ``k`` is contributed by process
+    ``owners[k]`` of ``group``, each process its items in order, zero-padded
+    to the most any contributes: ``(pad, slots)``, ``slots[k]`` the row of
+    the gathered ``[len(group) * pad, ...]`` that holds item ``k``."""
+    pad = max(owners.count(q) for q in group)
+    seen = dict.fromkeys(group, 0)
+    slots = []
+    for q in owners:
+        slots.append(group.index(q) * pad + seen[q])
+        seen[q] += 1
+    return pad, slots
+
+
 class ProcessSpan:
     """The time shards ``[lo, hi)`` of ``n`` that this process computes in a
     mesh spanning processes, and the exchanges that cross its boundaries.
 
     Two groups of processes exchange (:class:`~.mesh.Mesh`): this process's
-    **column**, its time neighbours, whose rows together are the mesh's
-    rows once each (every process where each owns whole rows), and its
-    **row**, the processes that split a time row's chan positions with it
-    (only itself where it owns whole rows).  :attr:`time` says whether the
-    column holds another process: where it does not, this process computes
-    every time shard and the time exchanges are not made.
+    **column**, its time group (every process where each owns whole rows,
+    its column where each owns columns of one row, every process where a
+    process's devices end one row and begin the next), and its **row**, its
+    channel group, which splits the channel ranges (only itself where it
+    owns whole rows).  :attr:`time` says whether the column holds another
+    process: where it does not, this process computes every time shard and
+    the time exchanges are not made.
 
     Every exchange goes through :attr:`exchange`, ``exchange(kind, v,
-    device)``.  Among the column: ``"halo"`` gives the previous process's
-    ``v`` (zeros on the process of global shard 0), ``"last"`` the ``v`` of
-    the process that owns the last shard, ``"gather"`` every process's ``v
-    [k, ...]`` concatenated in time order.  Among the row: ``"chan"`` every
-    process's ``v [k, ...]`` concatenated in column order.  The result lies
-    on ``device``.  The default, :meth:`eager`, runs eagerly;
+    device)``.  Among the column, each time shard has one publisher
+    (:meth:`~.mesh.Mesh.publishers`): ``"halo"`` sends ``v`` (the tail of
+    this process's shard :attr:`halo_k`) to the processes :attr:`to` whose
+    first shard follows it and gives the tail ``prev`` sent (zeros on the
+    processes of global shard 0); ``"last"`` gives the ``v`` of the process
+    that publishes the last shard; ``"gather"`` every process's ``v [pad,
+    ...]`` (its :attr:`published` shards' values, zero-padded to
+    :attr:`pad`) concatenated in rank order, whose rows :attr:`slots` are
+    the shards in time order.  Among the row: ``"chan"`` every process's
+    ``v [chan_pad, ...]`` (its ranges' rows, zero-padded) concatenated in
+    rank order, whose rows :attr:`chan_slots` are the ranges in column
+    order.  Where every process holds whole rows or one row's columns the
+    padding is none and the slots are in order.  The result lies on
+    ``device``.  The default, :meth:`eager`, runs eagerly;
     ``dist.meshgraph`` swaps in one that runs the exchanges inside the CUDA
     graphs of a step, or between them.  Both move the data through buffers
     made once (:meth:`buffers`) and run the call of the exchange on them
@@ -351,15 +377,23 @@ class ProcessSpan:
         rows = mesh.rows()
         self.lo, self.hi, self.n = rows[0], rows[-1] + 1, mesh.shape["time"]
         self.rank = mesh.rank
-        j = mesh.columns()[0]
-        self.prev = mesh.ranks[self.lo - 1][j] if self.lo > 0 else None
-        self.next = mesh.ranks[self.hi][j] if self.hi < self.n else None
-        self.last = mesh.ranks[-1][j]
         ranks = sorted({r for row in mesh.ranks for r in row})
         self.column, self.row = mesh.column_ranks(), mesh.row_ranks()
         self.world = len(self.column)
         self.time = self.world > 1
         self.home = mesh.home
+        # the time tables: who publishes each shard, where it lands in a gather
+        pubs = mesh.publishers()
+        self.published = [i - self.lo for i in range(self.lo, self.hi) if pubs[i] == self.rank]
+        self.pad, self.slots = _slots(pubs, self.column)
+        self.prev = pubs[self.lo - 1] if self.lo > 0 else None
+        self.last = pubs[-1]
+        firsts = {q: mesh.rows(q)[0] for q in self.column}
+        self.to = [q for q in self.column if firsts[q] > 0 and pubs[firsts[q] - 1] == self.rank]
+        (sent,) = {firsts[q] - 1 for q in self.to} or {self.hi - 1}
+        self.halo_k = sent - self.lo
+        # the channel tables: where each range lands in a "chan" exchange
+        self.chan_pad, self.chan_slots = _slots([q for q, _ in mesh.chan_owners()], self.row)
         if transport is None:
             ids = [[c for row, rr in zip(mesh.ids, mesh.ranks) for c, q in zip(row, rr) if q == r]
                    for r in ranks]
@@ -376,6 +410,11 @@ class ProcessSpan:
         self.group, self.row_group = groups[TIME_AXIS], groups[CHAN_AXIS]
         self.exchange = self.eager
         self._bufs: dict[tuple, tuple[torch.Tensor, torch.Tensor]] = {}
+
+    @property
+    def next(self) -> int | None:
+        """The first process of :attr:`to` (None where it sends no halo)."""
+        return self.to[0] if self.to else None
 
     def buffers(self, kind: str, v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """``(send, recv)`` for an exchange of ``v``: on the home card for
@@ -399,9 +438,7 @@ class ProcessSpan:
         dist = _dist()
         g = self.group
         if kind == "halo":
-            reqs = []
-            if self.next is not None:
-                reqs.append(dist.isend(send, self.next, group=g))
+            reqs = [dist.isend(send, q, group=g) for q in self.to]
             if self.prev is not None:
                 reqs.append(dist.irecv(recv, self.prev, group=g))
             for r in reqs:
@@ -417,8 +454,8 @@ class ProcessSpan:
 
     def collective(self, kind: str, send: torch.Tensor, recv: torch.Tensor) -> None:
         """The collective of one exchange on the buffers themselves: the
-        halo a send to the next process and a receive from the previous one
-        in one batch, ``"last"`` a broadcast from the last shard's process,
+        halo the sends to :attr:`to` and a receive from ``prev`` in one
+        batch (none where this process has neither), ``"last"`` a broadcast from the last shard's publisher,
         ``"gather"`` (the column) and ``"chan"`` (the row) an all-gather
         into one tensor.  On the card each is enqueued on the current
         stream's order (inside a capture, into its graph) and the host does
@@ -427,12 +464,10 @@ class ProcessSpan:
         g = self.group
         with torch.cuda.device(send.device) if send.is_cuda else contextlib.nullcontext():
             if kind == "halo":
-                ops = []
-                if self.next is not None:
-                    ops.append(dist.P2POp(dist.isend, send, self.next, g))
+                ops = [dist.P2POp(dist.isend, send, q, g) for q in self.to]
                 if self.prev is not None:
                     ops.append(dist.P2POp(dist.irecv, recv, self.prev, g))
-                for r in dist.batch_isend_irecv(ops):
+                for r in dist.batch_isend_irecv(ops) if ops else ():
                     r.wait()
             elif kind == "last":
                 dist.broadcast(send, self.last, group=g)
@@ -469,9 +504,9 @@ class ProcessSpan:
                f"process {self.rank} is gone; the NCCL group was aborted and the process "
                f"ends in {END_GRACE_S} s")
         print(msg, file=sys.stderr, flush=True)
-        for g in (self.group, self.row_group):
-            if g is not None:
-                _give_up(g)
+        # one group serves both axes where both are every process
+        for g in {id(g): g for g in (self.group, self.row_group) if g is not None}.values():
+            _give_up(g)
         raise RuntimeError(msg)
 
 

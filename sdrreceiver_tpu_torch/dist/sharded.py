@@ -18,12 +18,13 @@ over the ``chan`` devices, and each range runs the single-device bucket
 step (``CompiledReceiver._bucket_step``) unchanged, on the stateful path
 (no bucket kernel runs under a mesh, as in the JAX package).  So taps, late
 /5 /6, overlap-save and IQ topics are the same code in both receivers.
-Where a time row spans processes (a global mesh of fewer devices a process
-than ``n_chan``), each process computes the time shards of its rows whole
-(the front repeated across the row, as the JAX ``shard_map`` repeats it
-over the chan axis) and only the channel ranges of its own devices; one
-``"chan"`` exchange a split bucket then gathers every range's new state
-and outputs from the processes of the row.
+Where a time row spans processes (a global mesh whose process's device
+count is not a multiple of ``n_chan``), each process computes the time
+shards of its rows whole (the front repeated across the row, as the JAX
+``shard_map`` repeats it over the chan axis) and only the channel ranges
+``Mesh.chan_owners`` gives it, each on its device at that chan position;
+one ``"chan"`` exchange a split bucket then gathers every range's new
+state and outputs from the processes of its channel group.
 
 State and outputs live on the home device in exactly the single-device
 layout: ``export_state`` / ``import_state``, the checkpoints and the burst
@@ -35,10 +36,10 @@ once per exchange for every shard together: the raw block out to the
 shards, the DC totals in and the starting means out, the halos (with the
 shard NCO phases), the input tail and the group outputs in, and per split
 bucket its channel ranges out and back.  Where the mesh spans processes,
-what crosses a process boundary (among the processes of a time column: the
+what crosses a process boundary (among the processes of a time group: the
 halo into the process's first shard, the DC totals, the input tail, the
-group outputs and the last shard's cascade histories; among those of a time
-row: each split bucket's channel ranges) is one call of
+group outputs and the last shard's cascade histories; among those of a
+channel group: each split bucket's channel ranges) is one call of
 ``ProcessSpan.exchange`` each: an NCCL
 collective on the home card's tensors where every process holds cards no
 other process holds, else a gloo call on host buffers (:attr:`exchange`
@@ -132,9 +133,10 @@ def _pack(items: list[torch.Tensor], m: int) -> torch.Tensor:
 
 
 def _unpack(rows: torch.Tensor, like: list[torch.Tensor], counts: list[int], m: int):
-    """The inverse of :func:`_pack` over every range (``rows [n, bytes]``,
-    ``counts`` the ranges' channels): each item of ``like`` (one range's,
-    for shapes and dtypes) over the whole bucket, channel axis first."""
+    """The inverse of :func:`_pack` over every range (``rows``: each
+    range's row of bytes in column order, ``counts`` the ranges' channels):
+    each item of ``like`` (one range's, for shapes and dtypes) over the
+    whole bucket, channel axis first."""
     out, at = [], 0
     for t in like:
         n = m * t[:1].numel() * t.element_size()
@@ -211,13 +213,13 @@ class ShardedReceiver(CompiledReceiver):
             self._span = ProcessSpan(mesh)
         super().__init__(plan, block, device=mesh.home, **kwargs)
         # each bucket of at least n_chan channels: contiguous ranges over
-        # the chan positions of this process's first time row, each with the
-        # constants of its range on this process's device there (None: the
-        # range of another process of the row)
+        # the chan positions, each with the constants of its range on the
+        # device of this process that computes it (Mesh.chan_owners; None:
+        # a range another process of the channel group computes)
         self._chan_parts: dict[str, list] = {}
         if self.n_chan > 1:
-            own = dict(mesh.own(self._rows[0]))
-            split = len(own) < self.n_chan
+            owners = mesh.chan_owners()
+            split = len(mesh.row_ranks()) > 1
             for g in plan.groups:
                 for bi, b in enumerate(g.buckets):
                     if b.channels < self.n_chan:
@@ -229,8 +231,9 @@ class ShardedReceiver(CompiledReceiver):
                         lo, hi = int(idx[0]), int(idx[-1]) + 1
                         sub = dataclasses.replace(b, subs=b.subs[lo:hi])
                         taps = tuple(s.topic for s in sub.subs) if tap else ()
-                        parts.append((lo, hi, sub, None if j not in own else
-                                      _ChanSlice(self, bk, lo, hi, own[j], taps)))
+                        q, i = owners[j]
+                        parts.append((lo, hi, sub, None if q != mesh.rank else
+                                      _ChanSlice(self, bk, lo, hi, mesh.devices[i][j], taps)))
                     self._chan_parts[bk] = parts
 
     @property
@@ -242,7 +245,7 @@ class ShardedReceiver(CompiledReceiver):
     @property
     def _tspan(self):
         """The span of the time exchanges: None where this process computes
-        every time shard (a mesh in one process, or a time column of this
+        every time shard (a mesh in one process, or a time group of this
         process alone)."""
         span = self._span
         return span if span is not None and span.time else None
@@ -381,20 +384,25 @@ class ShardedReceiver(CompiledReceiver):
         )
 
     def _chan_exchange(self, bk: str, parts, homed, outputs: dict) -> dict:
-        """Every range of a bucket split across the processes of a time
-        row, from this process's ranges' results on the home device
+        """Every range of a bucket split across the processes of a channel
+        group, from this process's ranges' results on the home device
         (``homed``): each range's new state, audio and taps packed into one
         row of bytes, padded to the largest range (``all_gather`` needs one
-        length), one ``"chan"`` exchange of them in column order, the
-        padding cut off after it.  Returns the bucket's new state; adds its
+        length), as many rows from every process (zero rows where it
+        computes fewer ranges than another), one ``"chan"`` exchange of
+        them, the ranges picked out in column order (``chan_slots``) and
+        the padding cut off.  Returns the bucket's new state; adds its
         outputs to ``outputs``."""
+        span = self._span
         m = max(hi - lo for lo, hi, _, _ in parts)
         topics = [[s.topic for s in sub.subs] for _, _, sub, _ in parts]
         local = [ts for ts, p in zip(topics, parts) if p[3] is not None]
         items = [_chan_items(new, outs, bk, ts) for (new, outs), ts in zip(homed, local)]
-        rows = self._span.exchange("chan", torch.stack([_pack(it, m) for it in items]),
-                                   self.device)
-        full = _unpack(rows, items[0], [hi - lo for lo, hi, _, _ in parts], m)
+        packed = [_pack(it, m) for it in items]
+        packed += [torch.zeros_like(packed[0])] * (span.chan_pad - len(packed))
+        rows = span.exchange("chan", torch.stack(packed), self.device)
+        full = _unpack([rows[s] for s in span.chan_slots], items[0],
+                       [hi - lo for lo, hi, _, _ in parts], m)
         new, leaves = homed[0][0], iter(full)
         new = _refill(new, (t.movedim(0, _chan_dim(k)) for (k, _), t
                             in zip(flatten(new, bk + "/"), leaves)))

@@ -200,10 +200,19 @@ def test_global_mesh_layout_equals_jax(monkeypatch, n_proc, n_chan):
 
 
 def test_global_mesh_refuses_what_it_cannot_split():
-    """Unequal device counts, and a layout whose process is no rectangle of
-    the grid (3 processes of 2 devices at n_chan=3)."""
-    with pytest.raises(ValueError, match="contiguous run|rectangle|whole time rows"):
-        Mesh([["cpu"] * 3] * 2, [[0, 0, 1], [1, 2, 2]], rank=0)
+    """A layout whose process's devices end one time row and begin the next
+    (3 processes of 2 devices at n_chan=3) builds, with its owner tables:
+    one time group and one channel group of every process, each time shard
+    published by the last of its row's processes, each channel range
+    computed by one process at its first position.  Rows that are no
+    contiguous run of positions, which no ``global_mesh`` produces, are
+    refused."""
+    for pid, rows in enumerate([[0], [0, 1], [1]]):
+        mesh = Mesh([["cpu"] * 3] * 2, [[0, 0, 1], [1, 2, 2]], rank=pid)
+        assert mesh.rows() == rows
+        assert mesh.partition(TIME_AXIS) == mesh.partition(CHAN_AXIS) == [[0, 1, 2]]
+        assert mesh.publishers() == [1, 2]
+        assert mesh.chan_owners() == [(0, 0), (2, 1), (1, 0)]
     with pytest.raises(ValueError, match="contiguous"):
         Mesh([["cpu"], ["cpu"], ["cpu"]], [[0], [1], [0]], rank=0)
 
