@@ -120,6 +120,10 @@ its result and failing the script (non-zero exit) if it fails:
      next; process 1 computes both time shards), checked the same way
      against the one-process 2x3 (the kernels line's global 2x3 row)
 
+``chip_smoke.py --tracer`` runs only the in-program tracer's check on one
+card (``tracer_hold``): a callback that holds the host 1 ms a block, read
+on the device timeline of the tracer's CUDA events.
+
 ``chip_smoke.py --four-cards`` runs only phase 20's four-card meshes and
 phase 21's paths on distinct cards (a machine of four cards);
 ``chip_smoke.py --procs-on-cards`` only the latter (two cards or more), a
@@ -831,8 +835,8 @@ def phase_rtl_tcp(dev, card: str, reps: int) -> dict:
     if retune.get("reply") != {"ok": True, "center_freq": 1_545_700_000} \
             or (0x01, 1_545_700_000) not in srv.commands[5:]:
         fail("live rtl_tcp: the UDP retune did not reach the server as a 0x01 command")
-    lat = summary["block_latency_ms"]
-    print(f"live rtl_tcp block_latency_ms p50 {lat['p50']} p95 {lat['p95']} max {lat['max']}, "
+    lat = summary["host_ms_per_block"]
+    print(f"live rtl_tcp host_ms_per_block p50 {lat['p50']} p95 {lat['p95']} max {lat['max']}, "
           f"{summary['msamples_per_second']} Msamples/s (paced) {card}")
 
     direct = CompiledReceiver(rx.plan, LIVE_BLOCK, device=dev)
@@ -864,8 +868,8 @@ def phase_rtl_tcp(dev, card: str, reps: int) -> dict:
     srv.join(timeout=15)
     rt = fast["msamples_per_second"] * 1e6 / frx.plan.fs
     print(f"live rtl_tcp unpaced, {fast['blocks']} blocks of {frx.block}: "
-          f"{fast['msamples_per_second']} Msamples/s, realtime x{rt:.2f}, block_latency_ms "
-          f"p50 {fast['block_latency_ms']['p50']}, ring {fast['ring']} {card}")
+          f"{fast['msamples_per_second']} Msamples/s, realtime x{rt:.2f}, host_ms_per_block "
+          f"p50 {fast['host_ms_per_block']['p50']}, ring {fast['ring']} {card}")
     if fast["blocks"] != n_fast or fast["ring"]["dropped"] \
             or any(v != n_fast for v in path_launches(frx).values()):
         fail("live rtl_tcp unpaced: blocks dropped or kernels not launched")
@@ -921,7 +925,7 @@ def phase_scope(dev, card: str, reps: int) -> None:
                             "--control-port", cport], during)
     slack = summary.get("pacing_slack_ms", {})
     print(f"run --iq --scope main, paced: {summary['blocks']} blocks, pacing_slack_ms {slack}, "
-          f"block_latency_ms {summary['block_latency_ms']} {card}")
+          f"host_ms_per_block {summary['host_ms_per_block']} {card}")
     if summary["blocks"] != n or slack.get("behind_blocks") != 0:
         fail("run --iq --scope: fell behind realtime")
     spec = replies.get("spectrum", {})
@@ -1836,7 +1840,7 @@ def phase_mesh_cli(dev, card: str) -> dict:
     print(f"run --mesh 2x1 over rtl_tcp, paced: {summary['blocks']} blocks of {rx.block} on "
           f"{[str(x) for x in rx.mesh.local()]}, cuda_graphs {summary['cuda_graphs']}, ring "
           f"{summary['ring']}, rtl_tcp {summary['rtl_tcp']}; launches {launches} (expected "
-          f"{n} each); block_latency_ms p50 {summary['block_latency_ms']['p50']} {card}")
+          f"{n} each); host_ms_per_block p50 {summary['host_ms_per_block']['p50']} {card}")
     if summary["blocks"] != n or summary["ring"]["dropped"] or summary["rtl_tcp"]["reconnects"] \
             or not summary["cuda_graphs"] or rx.n_time != 2 or len(launches) != 2 \
             or any(v != n for v in launches.values()):
@@ -2337,8 +2341,8 @@ def proc_run(d: pathlib.Path, dev, shape: str, exchange: str, where: str, card: 
         print(f"{what} over rtl_tcp, paced, process {i} of 2 {where}: {summary['blocks']} "
               f"blocks, cuda_graphs {summary['cuda_graphs']}, exchange "
               f"{summary.get('exchange')}, ring {summary['ring']}, rtl_tcp {summary['rtl_tcp']}; "
-              f"launches {launches} (expected {n} each); block_latency_ms p50 "
-              f"{summary['block_latency_ms']['p50']} {card}")
+              f"launches {launches} (expected {n} each); host_ms_per_block p50 "
+              f"{summary['host_ms_per_block']['p50']} {card}")
         if summary["blocks"] != n or summary["ring"]["dropped"] \
                 or summary["rtl_tcp"]["reconnects"] or not summary["cuda_graphs"] \
                 or summary.get("exchange") != exchange \
@@ -2936,6 +2940,85 @@ def four_cards() -> None:
     last_lines(smi)
 
 
+def tracer_hold() -> None:
+    """``chip_smoke.py --tracer``: the flagship at 384,000-sample blocks,
+    400 blocks with the tracer on, every output fetched, then 400 more with
+    a callback that holds the host 1 ms a block (a spin: ``time.sleep``
+    oversleeps by a varying share of a millisecond).  The timeline's idle
+    share rises to within 5 points of 1 - d / (h + 1 ms), d and h a block's
+    event-timed device time (H2D + step + D2H) and host time without the
+    hold; the fetch wait falls to the host's own part; most idle time is
+    named ``runtime.deliver``; the profiler sees no CUDA row from the
+    timing events.  The first 10 blocks of each run are not read."""
+    from sdrreceiver_tpu_torch.core.runtime import run_pipeline
+    from sdrreceiver_tpu_torch.flagship import benchmark_config
+    from sdrreceiver_tpu_torch.graph.compiler import CompiledReceiver
+    from sdrreceiver_tpu_torch.graph.plan import build_plan
+    from sdrreceiver_tpu_torch.obs import trace
+
+    smi, card = cards_header(1)
+    rx = CompiledReceiver(build_plan(benchmark_config()), LIVE_BLOCK, device=torch.device(DEVICE))
+    pool = np.random.default_rng(2**31 + 5).integers(96, 160, size=(16, 2 * LIVE_BLOCK),
+                                                      dtype=np.uint8)
+    _, state = run_pipeline(rx, iter(pool[:8]), lambda o: 0, raw_u8=True, return_state=True)
+    n, read = 400, set(range(10, 400))
+
+    def traced(hold_ns: int):
+        nonlocal state
+
+        def sink(outs):
+            end = time.monotonic_ns() + hold_ns
+            while time.monotonic_ns() < end:
+                pass
+            return 0
+
+        trace.enable()
+        metrics, state = run_pipeline(rx, (pool[i % 16] for i in range(n)), sink, raw_u8=True,
+                                      state=state, return_state=True)
+        torch.cuda.synchronize()
+        rec = trace.snapshot()
+        trace.disable()
+        wait = float(np.median(trace.durations_ns(rec, "runtime.fetch_wait", read))) / 1e6
+        return rec, float(np.median(metrics.block_seconds[10:])) * 1e3, wait
+
+    base, h, wait0 = traced(0)
+    held, h1, wait1 = traced(1_000_000)
+    d = float(np.median(trace.device_intervals(base, read)["busy"])) / 1e6
+    before, got = 100 * trace.idle_share(base, read), 100 * trace.idle_share(held, read)
+    want = 100 * (1 - d / (h + 1.0))
+    idle = trace.summarize(held)["idle_s_by_span"]
+    print(f"tracer, 1 ms hold a block at {LIVE_BLOCK}: d {d:.4f} ms, h {h:.4f} ms "
+          f"(held {h1:.4f}); event idle share {before:.2f} -> {got:.2f} %, "
+          f"1 - d/(h + 1 ms) {want:.2f} %; fetch wait {wait0:.4f} -> {wait1:.4f} ms; "
+          f"idle s by span {idle} {card}")
+    if not got > before + 30 or not abs(got - want) <= 5.0:
+        fail("tracer: the held run's idle share is not 1 - d/(h + 1 ms) within 5 points")
+    # the device is done before the host asks: what is left is the host's
+    # own event wait and numpy views
+    if not wait1 < 0.1:
+        fail("tracer: the held run still waits for its D2H copies")
+    if max(idle, key=idle.get) != "runtime.deliver" \
+            or not idle["runtime.deliver"] > 0.5 * sum(idle.values()):
+        fail("tracer: the held run's idle time is not named runtime.deliver")
+
+    def rows(on: bool) -> set:
+        if on:
+            trace.enable()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run_pipeline(rx, (pool[i % 16] for i in range(20)), lambda o: 0, raw_u8=True,
+                         state=state)
+            torch.cuda.synchronize()
+        trace.disable()
+        return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+    plain, on = rows(False), rows(True)
+    print(f"tracer: profiler rows {len(plain)} off, {len(on)} on; new on {sorted(on - plain)} "
+          f"{card}")
+    if not on <= plain:
+        fail(f"tracer: the timing events add profiler rows {sorted(on - plain)}")
+    last_lines(smi)
+
+
 if __name__ == "__main__":
     modes = {"--procgraphs": proc_graphs_child,
              "--capture-failure-procs": capture_failure_procs_child,
@@ -2963,6 +3046,9 @@ if __name__ == "__main__":
         os._exit(rc)
     if sys.argv[1:2] == ["--capture-failure"]:
         sys.exit(capture_failure_child())
+    if sys.argv[1:2] == ["--tracer"]:
+        tracer_hold()
+        sys.exit(0)
     if sys.argv[1:2] == ["--four-cards"]:
         four_cards()
         sys.exit(0)

@@ -28,6 +28,10 @@ kernels' plain PyTorch versions, eagerly (``use_kernels=False,
 cuda_graphs=False``).  Each command's JSON summary says whether graphs ran
 (``"cuda_graphs"``) and, under ``--partition global``, which library
 exchanged (``"exchange"``: ``"nccl"`` or ``"gloo"``).
+``run`` and ``process-file`` take ``--trace-out FILE``: the command runs
+with the in-program tracer on (``obs.trace``), writes its record to FILE as
+Chrome trace-event JSON (Perfetto opens it) and adds per-span medians to
+its JSON summary (``"trace"``).
 ``--mesh TxC`` runs the sharded receiver over T*C local devices (the cards,
 repeated when T*C exceeds their count; ``--device cpu``: the CPU T*C
 times).  ``--coordinator HOST:PORT`` with ``--num-processes`` and
@@ -267,6 +271,18 @@ def _write_png(path: pathlib.Path, curve: np.ndarray, fs_tap: int, tap: str) -> 
     plt.close(fig)
 
 
+def _trace_out(args, summary: dict) -> None:
+    """``--trace-out FILE``: the record as Chrome trace JSON in FILE, its
+    per-span medians under the summary's ``"trace"``; tracing ends."""
+    if args.trace_out:
+        from ..obs import trace
+
+        rec = trace.snapshot()
+        trace.disable()
+        trace.write_chrome(args.trace_out, rec)
+        summary["trace"] = trace.summarize(rec)
+
+
 def cmd_process_file(args) -> int:
     from ..core import checkpoint
     from ..core.runtime import run_pipeline
@@ -368,6 +384,7 @@ def cmd_process_file(args) -> int:
         out["multihost"] = args._multihost
     out["outputs_written"] = sorted(written)
     out["realtime_factor"] = round(metrics.samples_per_second / plan.fs, 2)
+    _trace_out(args, out)
     print(json.dumps(out))
     return 0
 
@@ -536,6 +553,7 @@ def cmd_run(args) -> int:
         summary["exchange"] = rx.exchange
     if args._multihost:
         summary["multihost"] = args._multihost
+    _trace_out(args, summary)
     print(json.dumps(summary))
     return 0
 
@@ -666,6 +684,14 @@ def _common(sp, iq_required: bool = False) -> None:
     sp.add_argument("--iq", required=iq_required, default=None, help="IQ recording path")
 
 
+def _trace_arg(sp) -> None:
+    sp.add_argument(
+        "--trace-out", default=None, metavar="FILE",
+        help="trace the run in-program (spans, counters, the card's CUDA-event timeline) "
+        "and write it to FILE as Chrome trace-event JSON; adds per-span medians to the summary",
+    )
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="sdrreceiver-tpu-torch", description=__doc__,
@@ -709,6 +735,7 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the run to DIR/trace.json")
     sp.add_argument("--spectrum-png", action="store_true", help="render the spectrum to PNG")
+    _trace_arg(sp)
     sp.set_defaults(fn=cmd_process_file)
 
     sp = sub.add_parser("run", help="live receive -> ZMQ (rtl_tcp, local USB or looped file)")
@@ -724,6 +751,7 @@ def build_parser() -> argparse.ArgumentParser:
         help="enable the live scope on TAP ('main', 'g<i>', or a VFO topic; "
         "default main), switchable at run time via --control-port",
     )
+    _trace_arg(sp)
     sp.set_defaults(fn=cmd_run)
 
     sp = sub.add_parser("devices", help="list attached RTL USB devices")
@@ -739,6 +767,10 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     try:
+        if getattr(args, "trace_out", None):
+            from ..obs import trace
+
+            trace.enable()  # a fresh record for this command; _trace_out writes it
         return args.fn(args)
     except SystemExit as e:
         if isinstance(e.code, str):
@@ -750,6 +782,10 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     finally:
+        if getattr(args, "trace_out", None):
+            from ..obs import trace
+
+            trace.disable()
         if getattr(args, "coordinator", None):
             from ..dist import multihost
 

@@ -7,6 +7,11 @@ upload block N and enqueue its step, then wait for block N-1's outputs
 publish them while the device computes block N.  Nothing calls
 ``torch.cuda.synchronize()`` per block.  On the CPU the same code runs
 synchronously and the outputs are the step's own tensors.
+
+Each block's host times are taken once, from ``time.monotonic_ns()``, and
+feed both ``PipelineMetrics`` and, while tracing is on (``obs.trace``), the
+block's spans; on the card each block's stream work is then bracketed by
+timing events (the device timeline).
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from typing import Callable, Iterable
 import numpy as np
 import torch
 
+from ..obs import trace
 from ..obs.metrics import PipelineMetrics
 
 __all__ = ["run_pipeline"]
@@ -31,18 +37,27 @@ class _Fetched:
     still holds a view of it, so nothing is rewritten before it is
     consumed.  :meth:`numpy` asks the filter again, as the JAX runtime
     filters at publish time: a key it now drops is not delivered, and a key
-    it now keeps (a live scope switched in between) is copied then."""
+    it now keeps (a live scope switched in between) is copied then.  With
+    ``tr`` (a tracer whose unit in flight has timing events) the copies lie
+    between the unit's events 4 and 5, and event 5 is the one waited for."""
 
-    def __init__(self, outputs: dict, keep: Callable[[str], bool], device: torch.device):
+    def __init__(self, outputs: dict, keep: Callable[[str], bool], device: torch.device,
+                 tr: trace.Tracer | None = None):
         self.outputs = outputs
         self.host: dict[str, torch.Tensor] = {}
         self.event = None
         if device.type == "cuda":
             for k, v in outputs.items():
                 if keep(k):
-                    h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-                    h.copy_(v, non_blocking=True)
-                    self.host[k] = h
+                    self.host[k] = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+        if tr is not None:
+            tr.mark(4)
+        for k, h in self.host.items():
+            h.copy_(outputs[k], non_blocking=True)
+        if tr is not None:
+            tr.mark(5)
+            self.event = tr.timing[5]
+        elif device.type == "cuda":
             self.event = torch.cuda.Event()
             self.event.record()
 
@@ -55,13 +70,16 @@ class _Fetched:
 
 def _upload(rx, block) -> torch.Tensor:
     """A host block (numpy or tensor) -> a tensor on the receiver's device;
-    a CUDA upload goes through pinned memory without blocking the host."""
+    a CUDA upload goes through pinned memory without blocking the host.
+    While tracing, the unit's first timing event marks the copy's start,
+    after the host's pinning."""
     t = torch.as_tensor(block)
-    if t.device == rx.device:
-        return t
     if rx.device.type == "cuda" and t.device.type == "cpu":
         t = t.pin_memory()
-    return t.to(rx.device, non_blocking=True)
+    tr = trace.current()
+    if tr is not None and tr.timing is not None:
+        tr.mark(0)
+    return t if t.device == rx.device else t.to(rx.device, non_blocking=True)
 
 
 def _step(rx, state, block: torch.Tensor, raw_u8: bool, many: bool):
@@ -125,60 +143,116 @@ def run_pipeline(
     it = iter(blocks)
     if max_blocks is not None:
         it = itertools.islice(it, max_blocks)
+    tr = trace.current()
+    timeline = tr is not None and tr.timeline(rx.device)
+    if timeline:
+        tr.calibrate()
+        tr.stream = torch.cuda.current_stream()  # the stream the blocks' work goes to
+    depth = tr.depth() if tr is not None else 0
 
     def keep(key: str) -> bool:
         # nothing is copied to the host when no callback reads it
         return on_outputs is not None and (fetch_filter is None or fetch_filter(key))
 
-    def publish(unit: tuple[_Fetched, int | None] | None) -> int:
+    def publish(unit: tuple | None) -> int:
         """Wait for one unit's copies and fire the per-block callbacks."""
         if unit is None:
             return 0
-        fetched, k = unit
+        fetched, k, b, timing = unit
+        if tr is not None:
+            s = tr.begin("runtime.fetch_wait", time.monotonic_ns(), b)
         host = fetched.numpy(keep)
-        if on_outputs is None:
-            return 0
-        frames = [host] if k is None else rx.unstack_outputs(host, k)
-        return sum(on_outputs(rx.split_audio(f)) for f in frames)
+        if tr is not None:
+            t = time.monotonic_ns()
+            tr.end(s, t)
+            s = tr.begin("runtime.deliver", t, b)
+        sent = 0
+        if on_outputs is not None:
+            frames = [host] if k is None else rx.unstack_outputs(host, k)
+            sent = sum(on_outputs(rx.split_audio(f)) for f in frames)
+        if tr is not None:
+            tr.end(s, time.monotonic_ns())
+            if timing is not None:  # its D2H event has completed: read the set, after delivery
+                tr.device_entry(b, timing)
+        return sent
 
     pending = None
-    next_deadline = time.perf_counter()
-    while True:
-        stack = list(itertools.islice(it, burst))
-        if not stack:
-            break
-        if len(stack) == burst and burst > 1:
-            units = [(torch.stack([torch.as_tensor(b) for b in stack]), burst)]
-        else:
-            units = [(b, None) for b in stack]
-        for blk, k in units:
-            t0 = time.perf_counter()
-            state, outs = _step(rx, state, _upload(rx, blk), raw_u8, k is not None)
-            # publish the previous unit while this one computes; then
-            # queue this one's copies, so the filter's first answer has
-            # seen every earlier callback and is the one it gives at
-            # publish unless the filter changes in between
-            sent = publish(pending)
-            pending = (_Fetched(outs, keep, rx.device), k)
-            t_compute = time.perf_counter() - t0
-            slack = 0.0
-            if realtime_fs:
-                next_deadline += t_block / realtime_fs
-                slack = next_deadline - time.perf_counter()
-                if slack > 0:
-                    time.sleep(slack)
-                else:
-                    # behind realtime: resync (a dongle's lost time is lost)
-                    next_deadline = time.perf_counter()
-            # under burst the unit's time is split evenly over its blocks
-            # and the previous unit's messages go to its first block
-            n = k or 1
-            for j in range(n):
-                metrics.record_block(
-                    t_block, t_compute / n, sent if j == 0 else 0,
-                    pacing_slack=slack if realtime_fs else None,
-                )
-    metrics.messages_sent += publish(pending)
+    next_deadline = time.monotonic()
+    try:
+        while True:
+            if tr is not None:
+                t = time.monotonic_ns()
+                s_blk = tr.begin("runtime.block", t, tr.next_block)
+                s = tr.begin("runtime.source_wait", t)
+            stack = list(itertools.islice(it, burst))
+            t0 = time.monotonic_ns()
+            if not stack:
+                if tr is not None:
+                    tr.drop(s)
+                    tr.drop(s_blk)
+                break
+            if tr is not None:
+                tr.end(s, t0)
+            if len(stack) == burst and burst > 1:
+                units = [(torch.stack([torch.as_tensor(b) for b in stack]), burst)]
+            else:
+                units = [(b, None) for b in stack]
+            for j, (blk, k) in enumerate(units):
+                # under burst the unit's time is split evenly over its blocks
+                # and the previous unit's messages go to its first block
+                n = k or 1
+                b = timing = None
+                if j:
+                    t0 = time.monotonic_ns()
+                if tr is not None:
+                    if j:
+                        s_blk = tr.begin("runtime.block", t0, tr.next_block)
+                    b, tr.next_block = tr.next_block, tr.next_block + n
+                    timing = tr.timing = tr.events() if timeline else None
+                    s = tr.begin("runtime.upload", t0)
+                x = _upload(rx, blk)
+                if tr is not None:
+                    t = time.monotonic_ns()
+                    tr.end(s, t)
+                    if timing is not None:
+                        # event 2 marks the step's start; a graph step marks
+                        # it again, directly before its first stream work
+                        tr.mark(1)
+                        tr.mark(2)
+                    s = tr.begin("step.enqueue", t)
+                state, outs = _step(rx, state, x, raw_u8, k is not None)
+                if tr is not None:
+                    tr.end(s, time.monotonic_ns())
+                    if timing is not None:
+                        tr.mark(3)
+                # publish the previous unit while this one computes; then
+                # queue this one's copies, so the filter's first answer has
+                # seen every earlier callback and is the one it gives at
+                # publish unless the filter changes in between
+                sent = publish(pending)
+                pending = (_Fetched(outs, keep, rx.device, tr if timing else None), k, b, timing)
+                t_compute = (time.monotonic_ns() - t0) / 1e9
+                slack = 0.0
+                if realtime_fs:
+                    next_deadline += t_block / realtime_fs
+                    slack = next_deadline - time.monotonic()
+                    if slack > 0:
+                        time.sleep(slack)
+                    else:
+                        # behind realtime: resync (a dongle's lost time is lost)
+                        next_deadline = time.monotonic()
+                for i in range(n):
+                    metrics.record_block(
+                        t_block, t_compute / n, sent if i == 0 else 0,
+                        pacing_slack=slack if realtime_fs else None,
+                    )
+                if tr is not None:
+                    tr.end(s_blk, time.monotonic_ns())
+        metrics.messages_sent += publish(pending)
+    finally:
+        if tr is not None:
+            tr.unwind(depth)
+            tr.timing = None
     metrics.finish()
     if return_state:
         return metrics, state

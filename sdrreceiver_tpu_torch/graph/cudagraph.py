@@ -34,7 +34,11 @@ there, outside the capture).  Those runs launch the kernels on no block of
 the stream, so the wrappers' ``launches`` counts are put back after them;
 the capture records launches without running them, and each replay adds
 what it recorded.  A failed capture or replay raises; nothing falls back to
-the eager step.
+the eager step.  While tracing is on (``obs.trace``) each capture, its
+warm-up runs included, is the span ``step.capture`` and adds one to the
+counter ``step.captures`` and its ns to ``step.capture_ns``; a step
+records the block's step-start timing event directly before its input
+copy, its first stream work once the state needs no write-back.
 
 On a CPU receiver nothing is captured: every call runs the same in-place
 body on the same static buffers.  That is how the CPU tests hold what a
@@ -43,9 +47,12 @@ graph records.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Callable
 
 import torch
+
+from ..obs import trace
 
 __all__ = ["StepGraphs", "flatten", "write_back", "run_burst", "WARMUP_STEPS"]
 
@@ -154,6 +161,9 @@ class StepGraphs:
         if entry is None:
             entry = self._entries[key] = self._build(raw)
         write_back(self.state, state)
+        tr = trace.current()
+        if tr is not None and tr.timing is not None:
+            tr.mark(2)  # the step's stream work starts here: the host's part is done
         entry.input.copy_(raw)
         if entry.graph is None:
             outputs = entry.body()
@@ -170,9 +180,22 @@ class StepGraphs:
             self.state = rx.init_state()
         inp = torch.empty(raw.shape, dtype=raw.dtype, device=rx.device)
         body = self._body(inp)
-        if rx.device.type != "cuda":
+        if not self.captures:
             return _Entry(inp, body)
-        return self._capture(inp, raw, body)
+        t0 = time.monotonic_ns()
+        entry = self._capture(inp, raw, body)
+        tr = trace.current()
+        if tr is not None:
+            t1 = time.monotonic_ns()
+            tr.span("step.capture", t0, t1, block=-1, child=False)
+            tr.add("step.captures")
+            tr.add("step.capture_ns", t1 - t0)
+        return entry
+
+    @property
+    def captures(self) -> bool:
+        """Whether entries capture a graph: on the card."""
+        return self.rx.device.type == "cuda"
 
     def _body(self, inp: torch.Tensor):
         rx = self.rx

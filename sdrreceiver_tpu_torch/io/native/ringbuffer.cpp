@@ -13,6 +13,10 @@
 // the slot counters exactly like the reference's QMutex/QWaitCondition
 // (jonti/sdr.h:89-99); the memcpy/convert happens outside the lock.
 //
+// Each slot carries its push time on steady_clock (CLOCK_MONOTONIC on Linux,
+// the clock of Python's time.monotonic_ns), read back after a pop as
+// rb_last_push_ns; high_water is the most slots ever full at once.
+//
 // C API (ctypes-friendly), all functions return 0 on success unless noted.
 
 #include <atomic>
@@ -30,9 +34,12 @@ struct RingBuffer {
   int64_t block_bytes;     // size of one raw u8 block
   std::vector<uint8_t> storage;
   std::vector<int64_t> fill;  // bytes currently in each slot
+  std::vector<int64_t> pushed_ns;  // each slot's push time, steady_clock ns
+  int64_t last_push_ns = 0;        // push time of the last slot popped (consumer only)
   // slot state: [tail, head) full; producer writes head, consumer reads tail
   int head = 0, tail = 0, count = 0;
   std::atomic<uint64_t> pushed{0}, popped{0}, dropped{0};
+  int high_water = 0;  // guarded by mu
   std::mutex mu;
   std::condition_variable cv_data, cv_space;
   bool closed = false;
@@ -41,11 +48,18 @@ struct RingBuffer {
   RingBuffer(int slots, int64_t bytes) : n_slots(slots), block_bytes(bytes) {
     storage.resize(static_cast<size_t>(slots) * bytes);
     fill.assign(slots, 0);
+    pushed_ns.assign(slots, 0);
     // (v - 127) * 1.0 — the reference's exact LUT (jonti/sdr.cpp:43-49)
     for (int i = 0; i < 256; i++) lut[i] = static_cast<float>(i - 127);
   }
   uint8_t* slot(int i) { return storage.data() + static_cast<size_t>(i) * block_bytes; }
 };
+
+int64_t now_ns() {
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch())
+      .count();
+}
 
 }  // namespace
 
@@ -82,8 +96,10 @@ int rb_push(void* h, const uint8_t* data, int64_t n_bytes, int block_on_full) {
   {
     std::lock_guard<std::mutex> lk(rb->mu);
     rb->fill[slot_idx] = n_bytes;
+    rb->pushed_ns[slot_idx] = now_ns();
     rb->head = (rb->head + 1) % rb->n_slots;
     rb->count++;
+    if (rb->count > rb->high_water) rb->high_water = rb->count;
     rb->pushed.fetch_add(1, std::memory_order_relaxed);
   }
   rb->cv_data.notify_one();
@@ -108,6 +124,7 @@ int64_t rb_pop_f32(void* h, float* out, int64_t capacity_floats, int timeout_ms)
     if (rb->count == 0) return -1;  // closed and drained
     slot_idx = rb->tail;
     n = rb->fill[slot_idx];
+    rb->last_push_ns = rb->pushed_ns[slot_idx];
   }
   if (n > capacity_floats) n = capacity_floats;
   const uint8_t* src = rb->slot(slot_idx);
@@ -138,6 +155,7 @@ int64_t rb_pop_raw(void* h, uint8_t* out, int64_t capacity_bytes, int timeout_ms
     if (rb->count == 0) return -1;
     slot_idx = rb->tail;
     n = rb->fill[slot_idx];
+    rb->last_push_ns = rb->pushed_ns[slot_idx];
   }
   if (n > capacity_bytes) n = capacity_bytes;
   std::memcpy(out, rb->slot(slot_idx), static_cast<size_t>(n));
@@ -169,6 +187,14 @@ int rb_stat_depth(void* h) {
   std::lock_guard<std::mutex> lk(rb->mu);
   return rb->count;
 }
+int rb_stat_high_water(void* h) {
+  auto* rb = static_cast<RingBuffer*>(h);
+  std::lock_guard<std::mutex> lk(rb->mu);
+  return rb->high_water;
+}
+// Push time (steady_clock ns) of the block the last successful pop returned;
+// call from the consumer's thread.
+int64_t rb_last_push_ns(void* h) { return static_cast<RingBuffer*>(h)->last_push_ns; }
 
 // Standalone batch converter: u8 -> f32 with the (v-127) LUT semantics.
 void u8_to_f32(const uint8_t* in, float* out, int64_t n) {

@@ -17,8 +17,11 @@ keepalive/reconnect options per zmqpublisher.cpp:24-37.
 from __future__ import annotations
 
 import struct
+import time
 
 import numpy as np
+
+from ..obs import trace
 
 try:
     import zmq
@@ -102,7 +105,10 @@ class EgressHub:
                 self.rates[f"iq/{g.zmq_topic}"] = g.out_rate
 
     def publish_outputs(self, outputs: dict[str, np.ndarray]) -> int:
-        """Send one step's outputs; returns messages sent."""
+        """Send one step's outputs; returns messages sent (traced as
+        ``egress.publish``)."""
+        tr = trace.current()
+        t0 = time.monotonic_ns() if tr is not None else 0
         sent = 0
         for key, arr in outputs.items():
             pub = self._route.get(key)
@@ -111,6 +117,8 @@ class EgressHub:
             topic = key.split("/", 1)[1]
             pub.publish(topic, self.rates[key], np.asarray(arr))
             sent += 1
+        if tr is not None:
+            tr.span("egress.publish", t0, time.monotonic_ns())
         return sent
 
     def close(self) -> None:

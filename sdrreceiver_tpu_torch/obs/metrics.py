@@ -1,9 +1,11 @@
 """Throughput/latency counters and the static cost model of a plan.
 
-Port of ``sdrreceiver_tpu.obs.metrics`` (numpy only, the same summary keys):
-every pipeline run tracks samples in, wall time and block latency
-percentiles, and ``plan_cost_model`` gives the FLOPs and bytes per ingest
-block of a ReceiverPlan.
+Port of ``sdrreceiver_tpu.obs.metrics`` (numpy only): every pipeline run
+tracks samples in, wall time and percentiles of the host's time per block
+(``host_ms_per_block``, which the JAX package names ``block_latency_ms``;
+its other summary keys are the JAX package's), on ``time.monotonic``, and
+``plan_cost_model`` gives the FLOPs and bytes per ingest block of a
+ReceiverPlan.
 """
 
 from __future__ import annotations
@@ -29,10 +31,10 @@ class PipelineMetrics:
     pacing_slack_seconds: list[float] = dataclasses.field(default_factory=list)
 
     def start(self) -> None:
-        self.started_at = time.perf_counter()
+        self.started_at = time.monotonic()
 
     def finish(self) -> None:
-        self.finished_at = time.perf_counter()
+        self.finished_at = time.monotonic()
 
     def record_block(
         self,
@@ -54,7 +56,7 @@ class PipelineMetrics:
 
     @property
     def wall_seconds(self) -> float:
-        end = self.finished_at or time.perf_counter()
+        end = self.finished_at or time.monotonic()
         return max(end - self.started_at, 1e-12)
 
     @property
@@ -70,7 +72,7 @@ class PipelineMetrics:
             "messages_sent": self.messages_sent,
             "wall_seconds": round(self.wall_seconds, 6),
             "msamples_per_second": round(self.samples_per_second / 1e6, 3),
-            "block_latency_ms": {
+            "host_ms_per_block": {
                 "p50": round(float(np.percentile(lat, 50)) * 1e3, 3),
                 "p95": round(float(np.percentile(lat, 95)) * 1e3, 3),
                 "max": round(float(lat.max()) * 1e3, 3),

@@ -245,10 +245,48 @@ def test_elastic_replays_retune_like_jax():
 
 
 # ---------------------------------------------------------- native ring
+# What the port's ring adds to the JAX package's source, for tracing: (the
+# JAX source's line before which it goes, the lines added).
+RING_ADDITIONS = (
+    (14, "//\n"
+         "// Each slot carries its push time on steady_clock (CLOCK_MONOTONIC on Linux,\n"
+         "// the clock of Python's time.monotonic_ns), read back after a pop as\n"
+         "// rb_last_push_ns; high_water is the most slots ever full at once.\n"),
+    (32, "  std::vector<int64_t> pushed_ns;  // each slot's push time, steady_clock ns\n"
+         "  int64_t last_push_ns = 0;        // push time of the last slot popped (consumer only)\n"),
+    (35, "  int high_water = 0;  // guarded by mu\n"),
+    (43, "    pushed_ns.assign(slots, 0);\n"),
+    (48, "\n"
+         "int64_t now_ns() {\n"
+         "  return std::chrono::duration_cast<std::chrono::nanoseconds>(\n"
+         "             std::chrono::steady_clock::now().time_since_epoch())\n"
+         "      .count();\n"
+         "}\n"),
+    (84, "    rb->pushed_ns[slot_idx] = now_ns();\n"),
+    (86, "    if (rb->count > rb->high_water) rb->high_water = rb->count;\n"),
+    (110, "    rb->last_push_ns = rb->pushed_ns[slot_idx];\n"),
+    (140, "    rb->last_push_ns = rb->pushed_ns[slot_idx];\n"),
+    (171, "int rb_stat_high_water(void* h) {\n"
+          "  auto* rb = static_cast<RingBuffer*>(h);\n"
+          "  std::lock_guard<std::mutex> lk(rb->mu);\n"
+          "  return rb->high_water;\n"
+          "}\n"
+          "// Push time (steady_clock ns) of the block the last successful pop returned;\n"
+          "// call from the consumer's thread.\n"
+          "int64_t rb_last_push_ns(void* h) { return static_cast<RingBuffer*>(h)->last_push_ns; }\n"),
+)
+
+
 def test_ringbuffer_source_identical_and_built_in_build_dir():
-    ours = REPO / "sdrreceiver_tpu_torch" / "io" / "native" / "ringbuffer.cpp"
-    ref = REPO / "sdrreceiver_tpu" / "io" / "native" / "ringbuffer.cpp"
-    assert ours.read_bytes() == ref.read_bytes()
+    """The port's ring is the JAX package's source byte for byte with the
+    push times and the high-water depth of ``RING_ADDITIONS`` inserted;
+    nothing of the JAX source is changed or left out."""
+    ours = (REPO / "sdrreceiver_tpu_torch" / "io" / "native" / "ringbuffer.cpp").read_bytes()
+    ref = (REPO / "sdrreceiver_tpu" / "io" / "native" / "ringbuffer.cpp").read_bytes()
+    lines = ref.decode().splitlines(keepends=True)
+    for at, added in reversed(RING_ADDITIONS):
+        lines[at:at] = [added]
+    assert "".join(lines).encode() == ours
     assert native.available()
     assert pathlib.Path(native.load_library()._name).parent == REPO / "build"
 
@@ -270,7 +308,7 @@ def test_ring_push_pop(rng, pop):
         got = getattr(ring, pop)(timeout_ms=1000)
         want = b if pop == "pop_raw" else b.astype(np.float32) - 127.0
         np.testing.assert_array_equal(got, want)
-    assert ring.stats == {"pushed": 3, "popped": 3, "dropped": 0, "depth": 0}
+    assert ring.stats == {"pushed": 3, "popped": 3, "dropped": 0, "depth": 0, "high_water": 3}
     ring.close()
     assert ring.push(blocks[0]) == -1 and getattr(ring, pop)(timeout_ms=100) is None
 
