@@ -1,17 +1,23 @@
-"""Host pipeline runner: ingest -> device step -> egress, one block in flight.
+"""Host pipeline runner: ingest -> device step -> egress.
 
 Port of ``sdrreceiver_tpu.core.runtime.run_pipeline``.  PyTorch enqueues
-CUDA work asynchronously, so the overlap is a two-deep software pipeline:
-upload block N and enqueue its step, then wait for block N-1's outputs
-(already queued for copy to pinned host memory behind a CUDA event) and
-publish them while the device computes block N.  Nothing calls
-``torch.cuda.synchronize()`` per block.  On the CPU the same code runs
-synchronously and the outputs are the step's own tensors.
+CUDA work asynchronously, so the overlap is a software pipeline at most
+two deep: upload block N and enqueue its step, publish block N-1 if it was
+held, then queue block N's copies to pinned host memory behind a CUDA
+event.  Block N is held, and published while the device computes block
+N+1, only if the source's next block is already waiting (a recording, a
+ring's backlog, a paced source past its next deadline): that overlap keeps
+a closed loop at full speed.  Otherwise it is published at once, so a live
+block's audio does not wait a block period for the next one
+(``published_early``).  Nothing calls ``torch.cuda.synchronize()`` per
+block.  On the CPU the same code runs synchronously and the outputs are
+the step's own tensors.
 
 Each block's host times are taken once, from ``time.monotonic_ns()``, and
 feed both ``PipelineMetrics`` and, while tracing is on (``obs.trace``), the
-block's spans; on the card each block's stream work is then bracketed by
-timing events (the device timeline).
+block's spans and the counter ``runtime.published_early``; on the card
+each block's stream work is then bracketed by timing events (the device
+timeline).
 """
 
 from __future__ import annotations
@@ -105,6 +111,7 @@ def run_pipeline(
     return_state: bool = False,
     fetch_filter: Callable[[str], bool] | None = None,
     burst: int = 1,
+    source_ready: Callable[[], bool] | None = None,
 ):
     """Drive a CompiledReceiver over a block source.
 
@@ -126,6 +133,13 @@ def run_pipeline(
       burst: blocks per ``step_many_*`` call (offline throughput; callbacks
         still fire once per block, in order).  Incompatible with
         ``realtime_fs``; a tail shorter than ``burst`` runs as single steps.
+      source_ready: whether the source's next block is already waiting
+        (a ring's depth above 0).  When it is not, each unit is published
+        as soon as its step's outputs are on the host instead of after the
+        next block is pulled.  None: always waiting (an iterable whose
+        next block is at hand).  Under ``realtime_fs`` the next block is
+        waiting only once its deadline has passed, so a paced block is
+        delivered before the pacing sleep.
 
     Returns PipelineMetrics, or ``(metrics, final_state)`` with return_state.
     """
@@ -176,6 +190,14 @@ def run_pipeline(
                 tr.device_entry(b, timing)
         return sent
 
+    def ready() -> bool:
+        """Whether the source's next block is already waiting."""
+        if realtime_fs and time.monotonic() < next_deadline:
+            return False
+        return source_ready is None or source_ready()
+
+    if tr is not None:
+        tr.add("runtime.published_early", 0)  # reads 0 where every unit is held
     pending = None
     next_deadline = time.monotonic()
     try:
@@ -199,7 +221,8 @@ def run_pipeline(
                 units = [(b, None) for b in stack]
             for j, (blk, k) in enumerate(units):
                 # under burst the unit's time is split evenly over its blocks
-                # and the previous unit's messages go to its first block
+                # and the messages published in its iteration (the previous
+                # unit's; its own, published early) go to its first block
                 n = k or 1
                 b = timing = None
                 if j:
@@ -225,16 +248,26 @@ def run_pipeline(
                     tr.end(s, time.monotonic_ns())
                     if timing is not None:
                         tr.mark(3)
-                # publish the previous unit while this one computes; then
-                # queue this one's copies, so the filter's first answer has
-                # seen every earlier callback and is the one it gives at
-                # publish unless the filter changes in between
+                # publish the previous unit, if held, while this one
+                # computes; then queue this one's copies, so the filter's
+                # first answer has seen every earlier callback and is the
+                # one it gives at publish unless the filter changes in
+                # between
                 sent = publish(pending)
                 pending = (_Fetched(outs, keep, rx.device, tr if timing else None), k, b, timing)
+                if realtime_fs:
+                    next_deadline += t_block / realtime_fs
+                if j == len(units) - 1 and not ready():
+                    # nothing waits at the source: holding this unit for
+                    # the next block would only delay its audio
+                    sent += publish(pending)
+                    pending = None
+                    metrics.published_early += 1
+                    if tr is not None:
+                        tr.add("runtime.published_early")
                 t_compute = (time.monotonic_ns() - t0) / 1e9
                 slack = 0.0
                 if realtime_fs:
-                    next_deadline += t_block / realtime_fs
                     slack = next_deadline - time.monotonic()
                     if slack > 0:
                         time.sleep(slack)

@@ -145,6 +145,11 @@ class IngestRing:
             tr.span("ring.queue", self.last_push_ns, time.monotonic_ns(), child=False)
             tr.count("ring.high_water", self._lib.rb_stat_high_water(self._h))
 
+    def depth(self) -> int:
+        """The blocks waiting in the ring now: one native call, cheap
+        enough to ask before every pop."""
+        return self._lib.rb_stat_depth(self._h)
+
     def close(self) -> None:
         """Wake a waiting consumer; pops drain what is left, then None."""
         if self._h:

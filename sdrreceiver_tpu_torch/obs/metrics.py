@@ -2,10 +2,11 @@
 
 Port of ``sdrreceiver_tpu.obs.metrics`` (numpy only): every pipeline run
 tracks samples in, wall time and percentiles of the host's time per block
-(``host_ms_per_block``, which the JAX package names ``block_latency_ms``;
-its other summary keys are the JAX package's), on ``time.monotonic``, and
-``plan_cost_model`` gives the FLOPs and bytes per ingest block of a
-ReceiverPlan.
+(``host_ms_per_block``, which the JAX package names ``block_latency_ms``),
+on ``time.monotonic``; its other summary keys are the JAX package's, and
+``published_early`` (the units ``run_pipeline`` published before pulling
+the next block) is the port's own.  ``plan_cost_model`` gives the FLOPs
+and bytes per ingest block of a ReceiverPlan.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ class PipelineMetrics:
     blocks: int = 0
     dropped_blocks: int = 0
     messages_sent: int = 0
+    published_early: int = 0
     started_at: float = 0.0
     finished_at: float = 0.0
     block_seconds: list[float] = dataclasses.field(default_factory=list)
@@ -43,8 +45,8 @@ class PipelineMetrics:
         sent: int = 0,
         pacing_slack: float | None = None,
     ) -> None:
-        """``seconds`` is COMPUTE time (dispatch + publish of the previous
-        block), excluding any realtime pacing sleep; the sleep's headroom is
+        """``seconds`` is COMPUTE time (dispatch, and the publish of the
+        previous block or of this one), excluding any realtime pacing sleep; the sleep's headroom is
         reported separately as ``pacing_slack`` (negative = falling behind
         realtime)."""
         self.samples_in += n_samples
@@ -70,6 +72,7 @@ class PipelineMetrics:
             "blocks": self.blocks,
             "dropped_blocks": self.dropped_blocks,
             "messages_sent": self.messages_sent,
+            "published_early": self.published_early,
             "wall_seconds": round(self.wall_seconds, 6),
             "msamples_per_second": round(self.samples_per_second / 1e6, 3),
             "host_ms_per_block": {

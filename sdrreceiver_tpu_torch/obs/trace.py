@@ -32,10 +32,13 @@ name                      where                                          parent
 ========================  =============================================  ==================
 
 ``runtime.fetch_wait`` and ``runtime.deliver`` carry the index of the block
-they fetch and publish (the previous one); the last block's run after the
-loop, with no parent.  Counters: ``step.captures`` and ``step.capture_ns``
-(the graphs captured and the ns their captures took) and
-``ring.high_water`` (the most ring slots ever full).
+they fetch and publish: the previous one where that block was held for the
+next, the block's own where it was published early; a block still held
+when the source ends is published after the loop, with no parent.
+Counters: ``step.captures`` and ``step.capture_ns`` (the graphs captured
+and the ns their captures took), ``ring.high_water`` (the most ring slots
+ever full) and ``runtime.published_early`` (the units ``run_pipeline``
+published before pulling the next block, 0 where it held every one).
 
 The device timeline (on the card): six timing events bracket each block's
 three pieces of stream work (``EVENTS``): before and after the H2D copy,
@@ -338,7 +341,7 @@ def durations_ns(rec: dict, name: str, blocks=None) -> np.ndarray:
 
 
 def holds_ns(rec: dict, blocks=None) -> dict[int, int]:
-    """Per block (of ``blocks``), the one-block hold: from the end of its
+    """Per block (of ``blocks``), the hold: from the end of its
     ``step.enqueue`` to the start of its ``runtime.deliver``."""
     a = _arrays(rec, blocks)
 

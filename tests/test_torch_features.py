@@ -285,12 +285,16 @@ def test_pipeline_metrics_summary_keys_equal():
             m.record_block(1000, 0.001 * (i + 1), 2, pacing_slack=0.01 - 0.005 * i)
         m.finish()
     a, b = ours.summary(), ref.summary()
-    # the port names the host's time per block for what it is
+    # the port names the host's time per block for what it is, and adds
+    # the count of units published before the next block was pulled
+    assert a.pop("published_early") == 0
     assert [{"host_ms_per_block": "block_latency_ms"}.get(k, k) for k in a] == list(b)
     assert a["host_ms_per_block"] == b["block_latency_ms"]
     assert a["pacing_slack_ms"] == b["pacing_slack_ms"]
+    # the JAX package's parameters, in its order, then the port's readiness hook
     sig = inspect.signature
-    assert list(sig(runtime.run_pipeline).parameters) == list(sig(jruntime.run_pipeline).parameters)
+    ours_params = list(sig(runtime.run_pipeline).parameters)
+    assert ours_params == list(sig(jruntime.run_pipeline).parameters) + ["source_ready"]
 
 
 # ------------------------------------------------------------- stream

@@ -326,6 +326,28 @@ def test_ring_drops_on_full_and_times_out(rng):
     ring.close()
 
 
+def test_ring_depth_equals_the_stats_depth(rng):
+    """``depth()`` reads what ``stats["depth"]`` reads, through pushes, a
+    push dropped on a full ring, and pops."""
+    ring = native.IngestRing(block_bytes=64, n_slots=3)
+    b = rng.integers(0, 256, 64).astype(np.uint8)
+    seen = []
+
+    def look():
+        assert ring.depth() == ring.stats["depth"]
+        seen.append(ring.depth())
+
+    look()
+    for _ in range(4):
+        ring.push(b)
+        look()
+    for _ in range(3):
+        assert ring.pop_raw(timeout_ms=100) is not None
+        look()
+    assert seen == [0, 1, 2, 3, 3, 2, 1, 0] and ring.stats["dropped"] == 1
+    ring.close()
+
+
 def test_ring_producer_consumer_threads(rng):
     """50 blocks through an 8-slot ring from a producer thread that retries
     a dropped push: every block arrives, in order."""

@@ -243,6 +243,97 @@ def test_hold_through_two_block_source(rx, raw):
     assert trace.summarize(rec)["hold_p50_ms"] >= 100
 
 
+def _order(rec):
+    """The spans as (name, block, parent's name), in the order they began."""
+    spans = _spans(rec)
+    names = {s["seq"]: s["name"] for s in spans}
+    return [(s["name"], s["block"], names.get(s["parent"])) for s in spans]
+
+
+def test_publish_early_while_the_next_block_is_not_waiting(rx, raw):
+    """A source whose hook says its next block is not there yet, as it
+    sleeps 0.2 s: block 0 is delivered before the loop waits for block 1.
+    Once the sleep is over the hook answers "waiting", so block 1 alone is
+    held, to the source's end."""
+    arrived = []
+
+    def blocks():
+        yield raw[0]
+        time.sleep(0.2)
+        arrived.append(1)
+        yield raw[1]
+
+    def source_ready():
+        return bool(arrived)
+
+    held = _run(rx, raw[:2])
+    tr = trace.enable()
+    got = []
+    m = runtime.run_pipeline(rx, blocks(), lambda o: got.append(o) or 3, raw_u8=True,
+                             source_ready=source_ready)
+    rec = trace.snapshot()
+    spans = _spans(rec)
+    deliver = next(s for s in spans if s["name"] == "runtime.deliver" and s["block"] == 0)
+    wait = next(s for s in spans if s["name"] == "runtime.source_wait" and s["block"] == 1)
+    assert wait["end"] - wait["start"] >= 0.15e9
+    assert deliver["start"] < wait["end"] and deliver["end"] <= wait["start"]
+    hold = trace.holds_ns(rec)
+    assert set(hold) == {0, 1} and all(h < 0.2e9 for h in hold.values()), hold
+    # block 0 inside its own iteration; block 1 after the loop
+    parents = {(n, b): p for n, b, p in _order(rec)}
+    assert parents[("runtime.deliver", 0)] == "runtime.block"
+    assert parents[("runtime.deliver", 1)] is None
+    assert tr.counters["runtime.published_early"] == 1 == m.published_early
+    assert m.summary()["published_early"] == 1 and m.messages_sent == 6
+    # the same outputs, element for element, as the run that holds each block
+    assert len(got) == len(held) == 2
+    for a, b in zip(got, held):
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_a_source_always_waiting_keeps_the_hold(rx, raw):
+    """A hook that always answers "waiting" runs the spans in the order of
+    a plain iterable: every block published in the next one's iteration."""
+    trace.enable()
+    plain = _run(rx, raw[:4])
+    want = _order(trace.snapshot())
+    tr = trace.enable()
+    got = []
+    m = runtime.run_pipeline(rx, iter(raw[:4]), lambda o: got.append(o) or 0, raw_u8=True,
+                             source_ready=lambda: True)
+    assert _order(trace.snapshot()) == want
+    assert tr.counters["runtime.published_early"] == 0 == m.summary()["published_early"]
+    for a, b in zip(got, plain):
+        assert a.keys() == b.keys() and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def test_paced_block_is_delivered_before_its_sleep(rx, raw, monkeypatch):
+    """Under ``realtime_fs`` a block is published as soon as it is on the
+    host, while its next deadline is ahead: each callback comes before the
+    pacing sleep that follows its block."""
+    events = []
+
+    class Clock:
+        monotonic, monotonic_ns = staticmethod(time.monotonic), staticmethod(time.monotonic_ns)
+
+        @staticmethod
+        def sleep(s):
+            events.append(("sleep", s))  # not slept: every deadline stays ahead
+
+    monkeypatch.setattr(runtime, "time", Clock)
+
+    def sink(outs):
+        events.append(("deliver",))
+        return 1
+
+    tr = trace.enable()
+    m = runtime.run_pipeline(rx, iter(raw[:4]), sink, raw_u8=True, realtime_fs=BLOCK)
+    assert [e[0] for e in events] == ["deliver", "sleep"] * 4
+    assert all(e[1] > 0 for e in events if e[0] == "sleep")
+    assert m.published_early == 4 == tr.counters["runtime.published_early"]
+    assert m.summary()["pacing_slack_ms"]["behind_blocks"] == 0 and m.messages_sent == 4
+
+
 def test_egress_publish_is_a_child_of_deliver(rx, raw):
     from sdrreceiver_tpu_torch.io import zmqpub
 
